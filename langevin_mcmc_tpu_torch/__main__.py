@@ -1,10 +1,11 @@
 """CLI: render a Mitsuba-style scene XML with the PyTorch port.
 
-    python -m langevin_mcmc_tpu_torch scene.xml [--spp N] [--device cuda]
+    python -m langevin_mcmc_tpu_torch scene.xml [--spp N] [--device cpu]
 
-Dispatches on the <dpt> integrator: "mcmc" (MALA small steps with plain
-large steps) or "mc" (bidirectional path tracing). Writes
-<output>_timeuse_<seconds>s.exr and .png into --output-dir.
+Dispatches on the <dpt> integrator: "mcmc" (MALA or H2MC small steps with
+plain large steps) or "mc" (bidirectional path tracing). Writes
+<output>_timeuse_<seconds>s.exr and .png into --output-dir. Renders on the
+card; on a machine without one, --device cpu must be given.
 """
 
 import argparse
@@ -27,19 +28,23 @@ def main(argv=None):
     p.add_argument('--chunk', type=int, default=8192,
                    help='wavefront size of the generation passes')
     p.add_argument('--output-dir', default='.', help='output directory')
-    p.add_argument('--device', default=None,
-                   help='torch device (default: cuda when available)')
+    p.add_argument('--device', default='cuda',
+                   help='torch device (default: cuda; the CPU only when '
+                        'asked for)')
     args = p.parse_args(argv)
-    os.makedirs(args.output_dir, exist_ok=True)
 
     import torch
+    device = torch.device(args.device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        print('error: no CUDA device; pass --device cpu to render on the '
+              'CPU', file=sys.stderr)
+        sys.exit(2)
+    os.makedirs(args.output_dir, exist_ok=True)
     from .scene.parse import parse_scene, parse_scene_host
     from .integrators.pathtrace import render_mc
     from .integrators.mlt import render_mlt
     from .utils import image_io
 
-    device = torch.device(args.device or
-                          ('cuda' if torch.cuda.is_available() else 'cpu'))
     results = []
     for scene_file in args.scenes:
         if not os.path.exists(scene_file):
@@ -57,10 +62,6 @@ def main(argv=None):
         opts = opts.replace(seed_offset=args.seedoffset)
         if args.spp is not None:
             opts = opts.replace(spp=args.spp)
-        if opts.integrator == 'mcmc' and not opts.mala:
-            raise NotImplementedError('only MALA small steps are ported; '
-                                      'set <boolean name="mala" '
-                                      'value="true"/>')
         gen = torch.Generator(device=device)
         gen.manual_seed(opts.seed_offset)
 

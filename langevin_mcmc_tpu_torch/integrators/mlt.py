@@ -1,12 +1,14 @@
 """MLT integrator: bootstrap, the vectorised chain step and film accumulation
-(port of integrators/mlt.py for MALA small steps with plain large steps).
+(port of integrators/mlt.py for MALA or H2MC small steps with plain large
+steps).
 
 * bootstrap generates num_init_samples paths in wavefront chunks, takes
   the average brightness (the normalization) and the path-length
   histogram, and equal-spaced-resamples chain seeds from the
   per-contribution CDF;
 * the chain step advances all chains at once: the large step runs on a
-  gathered subset of the lanes that want one, the MALA small step on all;
+  gathered subset of the lanes that want one, the MALA or H2MC small step
+  on all;
 * each chain carries its current state's splat bank (a large-step state
   re-splats every technique of its path weighted 1 - a, a small-step state
   its single technique);
@@ -115,7 +117,8 @@ def collapse_flat(flat, s_tags, weight):
 @dataclasses.dataclass
 class BankedState:
     """ChainState + the current state's pre-weighted splat bank + the
-    shared global PSS cache (MALA runs)."""
+    shared global PSS cache (None unless MALA: only MALA reads or fills
+    it)."""
     state: chain_mod.ChainState
     bank_screen: torch.Tensor    # [C, NB, 2]
     bank_contrib: torch.Tensor   # [C, NB, 3] (pre-weighted)
@@ -146,7 +149,9 @@ def init_full_state(opts, rec, contrib, screen, ls, ss, score_sum, flat,
 
 
 def attach_cache(banked: BankedState, opts):
-    """Attach an empty global cache (MALA always reads and fills one)."""
+    """Attach an empty global cache to a MALA run's state."""
+    if not opts.mala or opts.h2mc:
+        return banked
     cache = cache_mod.make_cache(opts, 2 * opts.max_depth,
                                  banked.bank_screen.device)
     return dataclasses.replace(banked, cache=cache)
@@ -168,6 +173,7 @@ def make_mlt_step(scene, opts, normalization, ls_prob):
     K = min(C, max(int(C * min(ls_prob, 1.0) * 1.3) + 1, 8))
     _, _, s_tags_static, _ = _slot_tables(D)
     dev = scene.device
+    h2mc = opts.h2mc
 
     def step(gen, banked, film, init_banked):
         state = banked.state
@@ -197,13 +203,18 @@ def make_mlt_step(scene, opts, normalization, ls_prob):
         prop_l = {k: (tree_map(scat, v) if k == 'rec' else scat(v))
                   for k, v in prop_lk.items() if k != 'all_flat'}
 
-        # isotropic-mixing lanes share the MALA step's single replay
+        # isotropic-mixing lanes share the small step's single replay
         use_iso = rand(C) < opts.uniform_mixing_probability
         z = torch.randn((C, Dm), generator=gen, device=dev)
         noise = chain_mod.perturb_noise(gen, C, D, opts, dev)
-        prop_adv, a_small = chain_mod.small_step_mala(
-            scene, opts, state, z, noise, cache=cache, use_iso=use_iso,
-            skip_lanes=is_large)
+        if h2mc:
+            prop_adv, a_small = chain_mod.small_step_h2mc(
+                scene, opts, state, z, noise, use_iso=use_iso,
+                skip_lanes=is_large)
+        else:
+            prop_adv, a_small = chain_mod.small_step_mala(
+                scene, opts, state, z, noise, cache=cache, use_iso=use_iso,
+                skip_lanes=is_large)
         a = torch.where(is_large, a_l, a_small)
 
         # ---- splats: one merged index_add ----
@@ -274,28 +285,11 @@ def make_mlt_step(scene, opts, normalization, ls_prob):
             acc_large | (acc_small & use_iso), torch.zeros_like(acc),
             torch.where(ran_adv, acc_small_adv | cur_ok,
                         state.gaussian_init))
-        # gradient-phase moments commit on small accept; cache-phase lanes
-        # keep the queried moments
-        grad_l = prop_adv['grad_lane']
-        cache_l = prop_adv['cache_lane']
-        new_v1 = torch.where((acc_small_adv & grad_l)[:, None],
-                             prop_adv['v1_prop'], state.v1)
-        new_v1 = torch.where((ran_adv & cache_l)[:, None], prop_adv['v1_now'],
-                             new_v1)
-        new_v2 = torch.where((acc_small_adv & grad_l)[:, None],
-                             prop_adv['v2_prop'], state.v2)
-        new_v2 = torch.where((ran_adv & cache_l)[:, None], prop_adv['v2_now'],
-                             new_v2)
-        snap = prop_adv['snap']
-        snap_sel = lambda nw, old: torch.where(
-            ran_adv.reshape(ran_adv.shape + (1,) * (nw.ndim - 1)), nw, old)
-        # cache fill: an accepted large step pushes the chain's buffered
-        # snapshot into its dimension row
-        cache = cache_mod.push_batch(
-            cache, 2 * (state.cached_s + state.cached_t - 1),
-            state.cached_pss, state.v1, state.v2, state.cached_weight,
-            acc_large & state.buffered, opts, s_tag=state.cached_s,
-            t_tag=state.cached_t)
+        # H2MC keeps no moments, snapshots or cache
+        moments = {}
+        if not h2mc:
+            moments, cache = _mala_commit(state, prop_adv, cache, acc_large,
+                                          acc_small_adv, ran_adv, opts)
 
         new_adj = torch.where(acc, torch.zeros_like(state.adjacent_reject),
                               state.adjacent_reject + 1)
@@ -307,8 +301,8 @@ def make_mlt_step(scene, opts, normalization, ls_prob):
         else:
             reset = torch.zeros_like(acc)
 
-        new_state = chain_mod.ChainState(
-            rec=chain_mod._where_state(acc, prop_rec, state.rec),
+        new_state = dataclasses.replace(
+            state, rec=chain_mod._where_state(acc, prop_rec, state.rec),
             valid=state.valid | acc,
             contrib=torch.where(acc[:, None], prop_contrib, state.contrib),
             screen_pos=torch.where(acc[:, None], prop_screen,
@@ -316,28 +310,13 @@ def make_mlt_step(scene, opts, normalization, ls_prob):
             ls_score=torch.where(acc, prop_ls, state.ls_score),
             ss_score=torch.where(acc, prop_ss, state.ss_score),
             score_sum=torch.where(acc, prop_score_sum, state.score_sum),
-            v1=new_v1, v2=new_v2,
-            g=torch.where(acc_small_adv[:, None], prop_adv['g_prop'],
-                          state.g),
-            t=state.t + acc_small_adv.to(torch.int32),
-            buffered=torch.where(acc_large, torch.zeros_like(acc),
-                                 torch.where(acc_small_adv,
-                                             torch.ones_like(acc),
-                                             state.buffered)),
             stepsize=state.stepsize, gaussian=new_gauss,
             gaussian_init=new_gauss_init,
             last_score_sum=torch.where(acc_large, prop_l['score_sum'],
                                        state.last_score_sum),
             last_score=torch.where(acc_large, prop_l['ls'],
                                    state.last_score),
-            adjacent_reject=new_adj,
-            queried=torch.where(ran_adv, prop_adv['queried'], state.queried),
-            last_pss=torch.where(ran_adv[:, None], prop_adv['last_pss'],
-                                 state.last_pss),
-            cached_pss=snap_sel(snap['pss'], state.cached_pss),
-            cached_s=snap_sel(snap['s'], state.cached_s),
-            cached_t=snap_sel(snap['t'], state.cached_t),
-            cached_weight=snap_sel(snap['weight'], state.cached_weight))
+            adjacent_reject=new_adj, **moments)
         reset_chain = dataclasses.replace(
             init_banked.state, valid=torch.zeros_like(acc),
             gaussian_init=torch.zeros_like(acc),
@@ -352,6 +331,47 @@ def make_mlt_step(scene, opts, normalization, ls_prob):
             cache=cache)
 
     return step
+
+
+def _mala_commit(state, prop_adv, cache, acc_large, acc_small_adv, ran_adv,
+                 opts):
+    """The MALA-only part of the commit: gradient-phase moments commit on
+    small accept, cache-phase lanes keep the queried moments; the chain's
+    evaluation snapshot; an accepted large step pushes the chain's buffered
+    snapshot into the cache. Returns (ChainState fields, cache)."""
+    grad_l = prop_adv['grad_lane']
+    cache_l = prop_adv['cache_lane']
+    new_v1 = torch.where((acc_small_adv & grad_l)[:, None],
+                         prop_adv['v1_prop'], state.v1)
+    new_v1 = torch.where((ran_adv & cache_l)[:, None], prop_adv['v1_now'],
+                         new_v1)
+    new_v2 = torch.where((acc_small_adv & grad_l)[:, None],
+                         prop_adv['v2_prop'], state.v2)
+    new_v2 = torch.where((ran_adv & cache_l)[:, None], prop_adv['v2_now'],
+                         new_v2)
+    snap = prop_adv['snap']
+    snap_sel = lambda nw, old: torch.where(
+        ran_adv.reshape(ran_adv.shape + (1,) * (nw.ndim - 1)), nw, old)
+    cache = cache_mod.push_batch(
+        cache, 2 * (state.cached_s + state.cached_t - 1),
+        state.cached_pss, state.v1, state.v2, state.cached_weight,
+        acc_large & state.buffered, opts, s_tag=state.cached_s,
+        t_tag=state.cached_t)
+    acc = acc_large | acc_small_adv
+    return dict(
+        v1=new_v1, v2=new_v2,
+        g=torch.where(acc_small_adv[:, None], prop_adv['g_prop'], state.g),
+        t=state.t + acc_small_adv.to(torch.int32),
+        buffered=torch.where(acc_large, torch.zeros_like(acc),
+                             torch.where(acc_small_adv, torch.ones_like(acc),
+                                         state.buffered)),
+        queried=torch.where(ran_adv, prop_adv['queried'], state.queried),
+        last_pss=torch.where(ran_adv[:, None], prop_adv['last_pss'],
+                             state.last_pss),
+        cached_pss=snap_sel(snap['pss'], state.cached_pss),
+        cached_s=snap_sel(snap['s'], state.cached_s),
+        cached_t=snap_sel(snap['t'], state.cached_t),
+        cached_weight=snap_sel(snap['weight'], state.cached_weight)), cache
 
 
 def render_mlt(scene, opts, generator, num_steps=None, progress=False,
@@ -385,9 +405,10 @@ def render_mlt(scene, opts, generator, num_steps=None, progress=False,
     timings['direct_s'] = _time.time() - t0
 
     # two-phase large-step probability: after ls_ratio of the run it scales
-    # by large_step_prob_scale
+    # by large_step_prob_scale (not for H2MC)
     ls_prob1 = opts.large_step_probability
-    ls_prob2 = min(ls_prob1 * opts.large_step_prob_scale, 1.0)
+    scale = 1.0 if opts.h2mc else opts.large_step_prob_scale
+    ls_prob2 = min(ls_prob1 * scale, 1.0)
     step1 = make_mlt_step(scene, opts, normalization, ls_prob1)
     step2 = step1 if ls_prob2 == ls_prob1 else \
         make_mlt_step(scene, opts, normalization, ls_prob2)

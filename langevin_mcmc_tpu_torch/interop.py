@@ -3,7 +3,9 @@ port as dicts of numpy arrays (numpy and torch only; no JAX import).
 
 The dicts are keyed by the field names the two packages share, so a test
 can take a scene parsed by the JAX package, carry it across, and feed both
-packages the same scene and the same inputs.
+packages the same scene and the same inputs. These converters are for the
+tests, which run on the CPU: that is why their device defaults to 'cpu',
+unlike the port's entry points.
 """
 
 import dataclasses
@@ -67,7 +69,9 @@ def contribs_from_numpy(d, device='cpu'):
 
 def chain_state_from_numpy(d, device='cpu'):
     """ChainState from numpy arrays; 'rec' and 'gaussian' are nested dicts
-    (the Gaussian's mean, cov_l_d, inv_cov_d, log_det)."""
+    (the Gaussian's mean, cov_l_d, inv_cov_d, log_det and its dense
+    cov_l, inv_cov, is_diagonal: [C, Dm, Dm] for H2MC, [C, 1, 1]
+    placeholders for MALA)."""
     return _from_numpy(ChainState, d, device)
 
 

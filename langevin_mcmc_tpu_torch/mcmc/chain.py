@@ -1,6 +1,6 @@
 """Vectorised Markov-chain state and the mutation kernels of the ported
-configuration: the plain large step and the MALA small step (port of
-mcmc/chain.py; the isotropic-only, H2MC, multiplexed and cache-seeded
+configuration: the plain large step and the MALA and H2MC small steps
+(port of mcmc/chain.py; the isotropic-only, multiplexed and cache-seeded
 kernels are not ported yet).
 
 All chains advance in lockstep as one wavefront. Random inputs are
@@ -14,7 +14,7 @@ import torch
 
 from ..path import trace, replay
 from ..path.records import PathRecord, to_subpath, get_path_pss, pss_dim
-from ..utils.tree import tree_take, tree_where
+from ..utils.tree import tree_map, tree_take, tree_where
 from . import gaussian as G
 from . import cache as cache_mod
 
@@ -62,7 +62,8 @@ def init_chain_state(rec, contrib, screen_pos, ls, ss, score_sum, opts):
         ls_score=ls, ss_score=ss, score_sum=score_sum,
         v1=z(Dm), v2=z(Dm), g=z(Dm), t=zi(), buffered=zb(),
         stepsize=torch.full((C,), opts.mala_stepsize, device=dev),
-        gaussian=G.isotropic_gaussian(C, Dm, opts.perturb_std_dev, dev),
+        gaussian=G.isotropic_gaussian(C, Dm, opts.perturb_std_dev, dev,
+                                      dense=opts.h2mc),
         gaussian_init=zb(), last_score_sum=torch.ones(C, device=dev),
         last_score=torch.ones(C, device=dev), adjacent_reject=zi(),
         queried=zb(), last_pss=z(Dm), cached_pss=z(Dm), cached_s=zi(),
@@ -131,18 +132,28 @@ def perturb_noise(generator, C, D, opts, device):
     return dict(time=n(C), cam_disc=n(C, D), lgt_disc=n(C, D))
 
 
-def _perturb_and_grad(scene, opts, rec, offset, noise, grad_mask):
+def _perturb_and_grad(scene, opts, rec, offset, noise, grad_mask,
+                      want_hess=False):
     """Perturb replay (collecting the frozen-path bake) + the gradient at
-    the proposal, skipped when no lane consumes it.
-    Returns (new_rec, res, grad [C, Dm])."""
+    the proposal (and its dense Hessian when want_hess: H2MC), skipped
+    when no lane consumes it.
+    Returns (new_rec, res, grad [C, Dm], hess [C, Dm, Dm] or None)."""
     C = rec.time.shape[0]
+    Dm = 2 * rec.max_depth
+    dev = rec.time.device
     new_rec, res, bake = replay.replay_path(
         scene, opts, rec, offset, noise, mode='perturb', collect_bake=True)
     if bool(grad_mask.any()):
-        grad = replay.path_grad(scene, opts, new_rec, bake=bake)
+        if want_hess:
+            grad, hess = replay.path_grad_hessian(scene, opts, new_rec,
+                                                  bake=bake)
+        else:
+            grad, hess = replay.path_grad(scene, opts, new_rec,
+                                          bake=bake), None
     else:
-        grad = torch.zeros((C, 2 * rec.max_depth), device=rec.time.device)
-    return new_rec, res, grad
+        grad = torch.zeros((C, Dm), device=dev)
+        hess = torch.zeros((C, Dm, Dm), device=dev) if want_hess else None
+    return new_rec, res, grad, hess
 
 
 def _mala_iso(C, Dm, opts, device):
@@ -293,8 +304,8 @@ def small_step_mala(scene, opts, state: ChainState, z, noise, cache,
         gauss_cur = _where_gauss(use_iso, iso_g, gauss_cur)
 
     offset = G.gaussian_sample(gauss_cur, z)
-    new_rec, res, g_raw = _perturb_and_grad(scene, opts, state.rec, offset,
-                                            noise, grad_lane)
+    new_rec, res, g_raw, _ = _perturb_and_grad(scene, opts, state.rec,
+                                               offset, noise, grad_lane)
     ok = res['valid'] & (res['ss_score'] > 0.0)
 
     # ---- proposal state ----
@@ -350,3 +361,87 @@ def small_step_mala(scene, opts, state: ChainState, z, noise, cache,
                 v1_now=v1_now, v2_now=v2_now, grad_lane=grad_lane,
                 cache_lane=cache_lane, queried=queried2, last_pss=last_pss2,
                 snap=snap), a
+
+
+# ---------------------------------------------------------------------------
+# H2MC small step
+# ---------------------------------------------------------------------------
+
+def small_step_h2mc(scene, opts, state: ChainState, z, noise, use_iso=None,
+                    skip_lanes=None):
+    """H2MC small step: gradient + Hessian at the current state and at the
+    proposal, anisotropic Gaussians, full MH ratio.
+
+    z: [C, Dm] standard-normal draws of the proposal offset; noise: the
+    perturb jitters (perturb_noise). use_iso: lanes proposing from the
+    isotropic N(0, perturbStdDev^2) kernel instead (they share this step's
+    one replay). skip_lanes: lanes whose result the caller discards (the
+    large-step lanes), excluded from the current-side budget.
+
+    The current-side gradient + Hessian runs only where the cached Gaussian
+    is stale, on a gathered subset of cur_grad_fraction * C lanes; lanes
+    beyond the budget propose from the isotropic kernel once, and the MH
+    ratio uses the kernel actually sampled (cur_ok tells the caller not
+    to commit it)."""
+    C = state.ls_score.shape[0]
+    Dm = 2 * opts.max_depth
+    dev = state.ls_score.device
+    sigma = opts.perturb_std_dev
+
+    def h2mc_gauss(grad, hess, ss_score):
+        m = (ss_score > 1e-15)[:, None]
+        grad = torch.where(m, grad, torch.zeros_like(grad))
+        hess = torch.where(m[..., None], hess, torch.zeros_like(hess))
+        return G.h2mc_gaussian(grad, hess, sigma, ss_score)
+
+    need = ~state.gaussian_init
+    if use_iso is not None:
+        need &= ~use_iso
+    if skip_lanes is not None:
+        need &= ~skip_lanes
+    Kc = min(C, max(int(C * opts.cur_grad_fraction), 8))
+    iso = G.isotropic_gaussian(C, Dm, sigma, dev, dense=True)
+    covered = torch.zeros_like(need)
+    gauss_cur_new = iso
+    if bool(need.any()):
+        if Kc >= C:
+            sel = torch.arange(C, device=dev)
+        else:
+            sel = torch.argsort(torch.where(need, 0, 1), stable=True)[:Kc]
+        rec_sel = tree_take(state.rec, sel)
+        grad, hess = replay.path_grad_hessian(
+            scene, opts, rec_sel, bake=replay.bake_frozen(scene, opts,
+                                                          rec_sel))
+        gauss_sel = h2mc_gauss(grad, hess, state.ss_score[sel])
+
+        def put(s, d):
+            d = d.clone()
+            d[sel] = s
+            return d
+
+        gauss_cur_new = tree_map(put, gauss_sel, iso)
+        covered[sel] = True
+        covered &= need
+    gauss_cur_new = _where_gauss(covered, gauss_cur_new, iso)
+    cur_ok = ~(need & ~covered)
+    gauss_cur = _where_gauss(state.gaussian_init, state.gaussian,
+                             gauss_cur_new)
+    if use_iso is not None:
+        gauss_cur = _where_gauss(use_iso, iso, gauss_cur)
+
+    offset = G.gaussian_sample(gauss_cur, z)
+    new_rec, res, g_p, h_p = _perturb_and_grad(
+        scene, opts, state.rec, offset, noise,
+        torch.ones(C, dtype=torch.bool, device=dev), want_hess=True)
+    ok = res['valid'] & (res['ss_score'] > 0.0)
+    gauss_prop = h2mc_gauss(g_p, h_p, res['ss_score'])
+    if use_iso is not None:
+        gauss_prop = _where_gauss(use_iso, iso, gauss_prop)
+    py = G.gaussian_log_pdf(offset, gauss_cur)
+    px = G.gaussian_log_pdf(-offset, gauss_prop)
+    a = torch.clamp(torch.exp(px - py) * res['ss_score']
+                    / torch.clamp(state.ss_score, min=1e-20), 0.0, 1.0)
+    a = torch.where(ok, a, torch.zeros_like(a))
+    return dict(rec=new_rec, contrib=res['contrib'], screen=res['screen_pos'],
+                ls=res['ls_score'], ss=res['ss_score'], ok=ok,
+                gauss_cur=gauss_cur, gauss_prop=gauss_prop, cur_ok=cur_ok), a

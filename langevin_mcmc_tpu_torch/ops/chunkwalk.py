@@ -10,20 +10,22 @@
    OR-reduce per block and compact each block's hit chunks into an
    ascending list with a count.
 3. The walk (``walk``): the CUDA kernel ``csrc/chunkwalk.cu`` for CUDA
-   tensors — closest hit or any hit — and ``walk_reference``, its plain
+   tensors — closest hit or any hit, each with the chunks staged in shared
+   memory or read resident from L2 — and ``walk_reference``, its plain
    torch version with the same contract, for CPU tensors.
+
+The resident form is used when the pack is at most ``LMC_CW_VMEM_BYTES``
+bytes (default 0: never), the JAX package's switch between its two walk
+kernels (``ops/chunkwalk.py:48,364`` there); ``make_intersect_fns`` reads
+it on each call.
 """
 
-import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import tempfile
-import time
 
 import numpy as np
 import torch
+
+from . import cuda_build
 
 RAY_BLOCK = 256
 TRI_CHUNK = 128
@@ -31,7 +33,14 @@ PACK_ROWS = 16
 BIG = 3.0e38
 
 # launches of the CUDA kernel, per variant; the plain version never counts
-launch_counts = {'closest_hit': 0, 'any_hit': 0}
+launch_counts = {'closest_hit': 0, 'any_hit': 0, 'closest_hit_resident': 0,
+                 'any_hit_resident': 0}
+
+
+def use_resident(pack):
+    """The resident form for packs of at most LMC_CW_VMEM_BYTES bytes."""
+    return pack.numel() * pack.element_size() <= int(
+        os.environ.get('LMC_CW_VMEM_BYTES', '0'))
 
 
 def reset_launch_counts():
@@ -52,9 +61,9 @@ def _morton3(x, y, z, bits=10):
     return out
 
 
-def prep_tables(B, C, ok, tp):
+def prep_tables(B, C, ok, tp, chunk=TRI_CHUNK):
     """Morton-order triangles; pack Woop rows + valid (+ the f32 id row 13
-    the JAX package keeps) into [K, 16, TRI_CHUNK]; int32 ids [K, TRI_CHUNK];
+    the JAX package keeps) into [K, 16, chunk]; int32 ids [K, chunk];
     per-chunk AABBs [K, 3] lo / hi. B [3,3T], C [3T], ok [T] are the Woop
     tables, tp [T,3,3] the keyframe-0 vertices."""
     T = ok.shape[0]
@@ -64,8 +73,8 @@ def prep_tables(B, C, ok, tp):
     q = np.clip(((cen - lo) / span * 1023).astype(np.int64), 0, 1023)
     order = np.argsort(_morton3(q[:, 0], q[:, 1], q[:, 2]), kind='stable')
 
-    Tp = -(-T // TRI_CHUNK) * TRI_CHUNK
-    K = Tp // TRI_CHUNK
+    Tp = -(-T // chunk) * chunk
+    K = Tp // chunk
     pack = np.zeros((PACK_ROWS, Tp), np.float32)
     for c in range(3):
         for j in range(3):
@@ -73,10 +82,10 @@ def prep_tables(B, C, ok, tp):
         pack[9 + c, :T] = C[c::3][order]
     pack[12, :T] = ok[order].astype(np.float32)
     pack[13, :T] = order.astype(np.float32)
-    pack = pack.reshape(PACK_ROWS, K, TRI_CHUNK).transpose(1, 0, 2).copy()
+    pack = pack.reshape(PACK_ROWS, K, chunk).transpose(1, 0, 2).copy()
     ids = np.zeros(Tp, np.int32)
     ids[:T] = order
-    ids = ids.reshape(K, TRI_CHUNK)
+    ids = ids.reshape(K, chunk)
 
     vs = tp[order].reshape(T, 9)
     lo3 = np.minimum(np.minimum(vs[:, 0:3], vs[:, 3:6]), vs[:, 6:9])
@@ -84,7 +93,7 @@ def prep_tables(B, C, ok, tp):
     chunk_lo = np.full((K, 3), np.inf, np.float32)
     chunk_hi = np.full((K, 3), -np.inf, np.float32)
     for k in range(K):
-        s, e = k * TRI_CHUNK, min((k + 1) * TRI_CHUNK, T)
+        s, e = k * chunk, min((k + 1) * chunk, T)
         if s < T:
             chunk_lo[k] = lo3[s:e].min(0)
             chunk_hi[k] = hi3[s:e].max(0)
@@ -96,10 +105,11 @@ def prep_tables(B, C, ok, tp):
 # ray sort and per-block chunk lists
 # ---------------------------------------------------------------------------
 
-def _sort_rays(scene_lo, scene_hi, org, d, alive):
+def _sort_rays(scene_lo, scene_hi, org, d, alive=None):
     """(dead-last, origin Morton cell (64^3), direction octant) order.
     Dead rays (max_t < min_t) sort behind every live ray, so they fill
-    whole ray blocks with empty chunk lists."""
+    whole ray blocks with empty chunk lists; alive=None sorts without the
+    dead-last key."""
     q = torch.clamp(((org - scene_lo) / torch.clamp(scene_hi - scene_lo,
                                                      min=1e-12)
                      * 63.0).to(torch.int32), 0, 63)
@@ -112,7 +122,8 @@ def _sort_rays(scene_lo, scene_hi, org, d, alive):
               + (d[:, 1] < 0).to(torch.int32) * 2
               + (d[:, 2] < 0).to(torch.int32))
     key = m * 8 + octant
-    key = torch.where(alive, key, torch.full_like(key, 0x3FFFFFFF))
+    if alive is not None:
+        key = torch.where(alive, key, torch.full_like(key, 0x3FFFFFFF))
     return torch.argsort(key, stable=True)
 
 
@@ -152,9 +163,10 @@ def _block_chunk_lists(org, d, min_t, max_t, chunk_lo, chunk_hi):
 # ---------------------------------------------------------------------------
 
 def _tile(p, ox, oy, oz, dx, dy, dz, mn, mx):
-    """Woop-projection test of [NB, RB] rays against [NB, 16, 128] chunk
-    rows. Returns (ok, t, u, v) of shape [NB, RB, 128]; every product and
-    sum is rounded in the kernel's order."""
+    """Woop-projection test of [NB, RB] rays against [NB, 16, TC] chunk
+    rows (NB may be 1 to broadcast one chunk). Returns (ok, t, u, v) of
+    shape [NB, RB, TC]; every product and sum is rounded in the kernel's
+    order."""
     def proj(c):
         b0 = p[:, 3 * c + 0][:, None, :]
         b1 = p[:, 3 * c + 1][:, None, :]
@@ -176,6 +188,22 @@ def _tile(p, ox, oy, oz, dx, dy, dz, mn, mx):
           & (u + v <= 1.0) & (t >= mn) & (t <= mx)
           & (p[:, 12][:, None, :] > 0.5))
     return ok, t, u, v
+
+
+def chunk_winner(ok, t, u, v, tid):
+    """Closest hit within each ray's chunk tile [..., TC]: the smallest t,
+    ties to the smallest id. Returns (t, id, u, v) of shape [...]; t = BIG
+    where nothing is hit."""
+    t_m = torch.where(ok, t, torch.full_like(t, BIG))
+    chunk_min = t_m.amin(-1)
+    is_min = ok & (t_m <= chunk_min[..., None])
+    tid = torch.broadcast_to(tid, t.shape)
+    win_id = torch.where(is_min, tid, torch.full_like(
+        tid, torch.iinfo(torch.int32).max)).amin(-1)
+    uniq = is_min & (tid == win_id[..., None])
+    win_u = torch.where(uniq, u, torch.zeros_like(u)).sum(-1)
+    win_v = torch.where(uniq, v, torch.zeros_like(v)).sum(-1)
+    return chunk_min, win_id, win_u, win_v
 
 
 def walk_reference(pack, ids, chunk_idx, counts, org, d, rng, any_hit):
@@ -201,7 +229,6 @@ def walk_reference(pack, ids, chunk_idx, counts, org, d, rng, any_hit):
     best_v = torch.zeros((nb, RAY_BLOCK), device=dev)
     occ = torch.zeros((nb, RAY_BLOCK), dtype=torch.bool, device=dev)
     max_count = int(counts.max()) if nb else 0
-    int_max = torch.iinfo(torch.int32).max
     for j in range(max_count):
         active = (j < counts)[:, None, None]
         cid = chunk_idx[:, j].long()
@@ -210,14 +237,8 @@ def walk_reference(pack, ids, chunk_idx, counts, org, d, rng, any_hit):
         if any_hit:
             occ |= ok.any(-1)
             continue
-        tid = ids[cid][:, None, :]
-        t_m = torch.where(ok, t, torch.full_like(t, BIG))
-        chunk_min = t_m.amin(-1)
-        is_min = ok & (t_m <= chunk_min[..., None])
-        win_id = torch.where(is_min, tid, torch.full_like(tid, int_max)).amin(-1)
-        uniq = is_min & (tid == win_id[..., None])
-        win_u = torch.where(uniq, u, torch.zeros_like(u)).sum(-1)
-        win_v = torch.where(uniq, v, torch.zeros_like(v)).sum(-1)
+        chunk_min, win_id, win_u, win_v = chunk_winner(
+            ok, t, u, v, ids[cid][:, None, :])
         better = chunk_min < best_t
         best_t = torch.where(better, chunk_min, best_t)
         best_id = torch.where(better, win_id, best_id)
@@ -233,76 +254,10 @@ def walk_reference(pack, ids, chunk_idx, counts, org, d, rng, any_hit):
 # the walk: CUDA kernel
 # ---------------------------------------------------------------------------
 
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), 'csrc')
-_BUILD = os.path.join(os.path.dirname(os.path.dirname(__file__)), '_build')
-_NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-               '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC']
-
-# set by the first build in this process: seconds, cached, library path
-build_info = {}
-_lib = None
-
-
-def _nvcc():
-    cuda_home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
-    cand = os.path.join(cuda_home, 'bin', 'nvcc')
-    return cand if os.path.exists(cand) else shutil.which('nvcc')
-
-
-def load_library():
-    """Build csrc/chunkwalk.cu with nvcc (once per source hash) into
-    _build/ and bind it with ctypes."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    src = os.path.join(_CSRC, 'chunkwalk.cu')
-    with open(src, 'rb') as f:
-        text = f.read()
-    digest = hashlib.sha256(text + ' '.join(_NVCC_FLAGS).encode())
-    out = os.path.join(_BUILD, f'libchunkwalk_{digest.hexdigest()[:16]}.so')
-    t0 = time.time()
-    cached = os.path.exists(out)
-    if not cached:
-        nvcc = _nvcc()
-        if nvcc is None:
-            raise RuntimeError('nvcc not found: the chunk-walk kernel '
-                               'needs the CUDA toolkit')
-        os.makedirs(_BUILD, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix='.so', dir=_BUILD)
-        os.close(fd)
-        try:
-            subprocess.run([nvcc, *_NVCC_FLAGS, '-o', tmp, src], check=True)
-            os.replace(tmp, out)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    lib = ctypes.CDLL(out)
-    ptr = ctypes.c_void_p
-    for name, n_out in (('chunkwalk_closest', 4), ('chunkwalk_any', 1)):
-        fn = getattr(lib, name)
-        fn.argtypes = ([ptr] * 7 + [ctypes.c_int, ctypes.c_int]
-                       + [ptr] * n_out + [ptr])
-        fn.restype = ctypes.c_int
-    build_info.update(seconds=time.time() - t0, cached=cached, path=out)
-    _lib = lib
-    return lib
-
-
-def _check(x, name, dtype, shape, device):
-    if x.device != device:
-        raise ValueError(f'{name} on {x.device}, expected {device}')
-    if x.dtype != dtype:
-        raise ValueError(f'{name} has dtype {x.dtype}, expected {dtype}')
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f'{name} has shape {tuple(x.shape)}, expected '
-                         f'{tuple(shape)}')
-    if not x.is_contiguous():
-        raise ValueError(f'{name} is not contiguous')
-
-
-def walk(pack, ids, chunk_idx, counts, org, d, rng, any_hit):
+def walk(pack, ids, chunk_idx, counts, org, d, rng, any_hit, resident=False):
     """The chunk walk over padded, sorted rays. CPU tensors run
-    walk_reference; CUDA tensors launch the kernel (or raise)."""
+    walk_reference (the function of both forms); CUDA tensors launch the
+    kernel, staged or resident (or raise)."""
     if not org.is_cuda:
         return walk_reference(pack, ids, chunk_idx, counts, org, d, rng,
                               any_hit)
@@ -310,32 +265,34 @@ def walk(pack, ids, chunk_idx, counts, org, d, rng, any_hit):
     nb = counts.shape[0]
     K = pack.shape[0]
     rp = nb * RAY_BLOCK
-    _check(pack, 'pack', torch.float32, (K, PACK_ROWS, TRI_CHUNK), dev)
-    _check(ids, 'ids', torch.int32, (K, TRI_CHUNK), dev)
-    _check(chunk_idx, 'chunk_idx', torch.int32, (nb, K), dev)
-    _check(counts, 'counts', torch.int32, (nb,), dev)
-    _check(org, 'org', torch.float32, (rp, 3), dev)
-    _check(d, 'dir', torch.float32, (rp, 3), dev)
-    _check(rng, 'rng', torch.float32, (rp, 2), dev)
-    lib = load_library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    check = cuda_build.check
+    check(pack, 'pack', torch.float32, (K, PACK_ROWS, TRI_CHUNK), dev)
+    check(ids, 'ids', torch.int32, (K, TRI_CHUNK), dev)
+    check(chunk_idx, 'chunk_idx', torch.int32, (nb, K), dev)
+    check(counts, 'counts', torch.int32, (nb,), dev)
+    check(org, 'org', torch.float32, (rp, 3), dev)
+    check(d, 'dir', torch.float32, (rp, 3), dev)
+    check(rng, 'rng', torch.float32, (rp, 2), dev)
+    lib = cuda_build.load_library()
+    stream = cuda_build.stream_of(dev)
     args = [x.data_ptr() for x in (pack, ids, chunk_idx, counts, org, d, rng)]
     if any_hit:
         occ = torch.empty(rp, dtype=torch.bool, device=dev)
-        err = lib.chunkwalk_any(*args, nb, K, occ.data_ptr(), stream)
+        err = lib.chunkwalk_any(*args, nb, K, int(resident), occ.data_ptr(),
+                                stream)
         variant, out = 'any_hit', occ
     else:
         t = torch.empty(rp, dtype=torch.float32, device=dev)
         tid = torch.empty(rp, dtype=torch.int32, device=dev)
         u = torch.empty(rp, dtype=torch.float32, device=dev)
         v = torch.empty(rp, dtype=torch.float32, device=dev)
-        err = lib.chunkwalk_closest(*args, nb, K, t.data_ptr(),
-                                    tid.data_ptr(), u.data_ptr(),
-                                    v.data_ptr(), stream)
+        err = lib.chunkwalk_closest(*args, nb, K, int(resident),
+                                    t.data_ptr(), tid.data_ptr(),
+                                    u.data_ptr(), v.data_ptr(), stream)
         variant, out = 'closest_hit', (t, tid, u, v)
-    if err != 0:
-        raise RuntimeError(f'chunk-walk {variant} launch failed: CUDA error '
-                           f'{err}')
+    if resident:
+        variant += '_resident'
+    cuda_build.raise_on_error(err, f'chunk-walk {variant}')
     launch_counts[variant] += 1
     return out
 
@@ -344,22 +301,26 @@ def walk(pack, ids, chunk_idx, counts, org, d, rng, any_hit):
 # the queries
 # ---------------------------------------------------------------------------
 
-def prepare_rays(cw, org, d, min_t, max_t):
-    """Pad to whole ray blocks (padding rays are dead), map max_t = inf to
-    BIG, sort, and build the per-block chunk lists. Returns the walk's
-    inputs and the sort order (None for a single block)."""
-    R = org.shape[0]
-    Rp = -(-R // RAY_BLOCK) * RAY_BLOCK
-    if Rp != R:
-        pad = Rp - R
+def pad_rays(org, d, min_t, max_t):
+    """Pad to whole ray blocks (padding rays are dead) and map max_t = inf
+    to BIG."""
+    pad = -org.shape[0] % RAY_BLOCK
+    if pad:
         org = torch.cat([org, org.new_zeros(pad, 3)])
         d = torch.cat([d, org.new_ones(pad, 3)])
         min_t = torch.cat([min_t, min_t.new_ones(pad)])
         max_t = torch.cat([max_t, max_t.new_zeros(pad)])
     max_t = torch.where(torch.isinf(max_t), torch.full_like(max_t, BIG),
                         max_t)
+    return org, d, min_t, max_t
+
+
+def prepare_rays(cw, org, d, min_t, max_t):
+    """Pad (pad_rays), sort, and build the per-block chunk lists. Returns
+    the walk's inputs and the sort order (None for a single block)."""
+    org, d, min_t, max_t = pad_rays(org, d, min_t, max_t)
     order = None
-    if Rp > RAY_BLOCK:
+    if org.shape[0] > RAY_BLOCK:
         order = _sort_rays(cw.scene_lo, cw.scene_hi, org, d,
                            alive=max_t >= min_t)
         org, d = org[order], d[order]
@@ -379,14 +340,9 @@ def _unsort(x, order, R):
     return x[:R]
 
 
-def intersect_chunkwalk(scene, org, d, time, min_t, max_t):
-    """Closest hit. Returns (hit, tri_id, t, u, v)."""
-    cw = scene.cw
-    (chunk_idx, counts, o, dd, rng), order = prepare_rays(cw, org, d,
-                                                         min_t, max_t)
-    t, tid, u, v = walk(cw.pack, cw.ids, chunk_idx, counts, o, dd, rng,
-                        any_hit=False)
-    R = org.shape[0]
+def closest_result(t, tid, u, v, order, R):
+    """A closest-hit walk's padded, sorted output as the query's result
+    (hit, tri_id, t, u, v) over the R rays in their own order."""
     t, tid, u, v = (_unsort(x, order, R) for x in (t, tid, u, v))
     hit = t < BIG
     zero = torch.zeros_like(t)
@@ -395,10 +351,21 @@ def intersect_chunkwalk(scene, org, d, time, min_t, max_t):
             torch.where(hit, v, zero))
 
 
-def occluded_chunkwalk(scene, org, d, time, min_t, max_t):
+def intersect_chunkwalk(scene, org, d, time, min_t, max_t, resident=False):
+    """Closest hit. Returns (hit, tri_id, t, u, v)."""
+    cw = scene.cw
+    (chunk_idx, counts, o, dd, rng), order = prepare_rays(cw, org, d,
+                                                         min_t, max_t)
+    out = walk(cw.pack, cw.ids, chunk_idx, counts, o, dd, rng,
+               any_hit=False, resident=resident)
+    return closest_result(*out, order, org.shape[0])
+
+
+def occluded_chunkwalk(scene, org, d, time, min_t, max_t, resident=False):
     """Any hit. Returns occluded [R] bool."""
     cw = scene.cw
     (chunk_idx, counts, o, dd, rng), order = prepare_rays(cw, org, d,
                                                          min_t, max_t)
-    occ = walk(cw.pack, cw.ids, chunk_idx, counts, o, dd, rng, any_hit=True)
+    occ = walk(cw.pack, cw.ids, chunk_idx, counts, o, dd, rng, any_hit=True,
+               resident=resident)
     return _unsort(occ, order, org.shape[0])

@@ -2,13 +2,15 @@
 
 * ``intersect_bruteforce`` — Moller-Trumbore over every triangle in chunks;
   exact, the test oracle.
-* ``make_intersect_fns`` — the main path's queries: the chunk walk
-  (``ops/chunkwalk.py``), which launches the CUDA kernel for CUDA tensors
-  and runs its plain torch version for CPU tensors.
+* ``make_intersect_fns`` — the backend switch of the queries: the chunk
+  walk (``ops/chunkwalk.py``), the culled sweep (``ops/sweep_isect.py``)
+  or brute force; each kernel launches for CUDA tensors and runs its plain
+  torch version for CPU tensors.
 * packed triangle rows, hit attributes and the frozen-triangle replay
   intersection used under differentiation.
 """
 
+import os
 from functools import partial
 
 import numpy as np
@@ -65,12 +67,35 @@ def intersect_bruteforce(scene, org, d, time, min_t, max_t):
         best_u, best_v
 
 
+def occluded_bruteforce(scene, org, d, time, min_t, max_t):
+    """Any-hit query; returns bool [R]."""
+    return intersect_bruteforce(scene, org, d, time, min_t, max_t)[0]
+
+
 def make_intersect_fns(scene):
-    """Return (intersect, occluded): the chunk walk, which launches the
-    CUDA kernel on a card and runs its plain version on the CPU."""
-    from .chunkwalk import intersect_chunkwalk, occluded_chunkwalk
-    return (partial(intersect_chunkwalk, scene),
-            partial(occluded_chunkwalk, scene))
+    """Return (intersect, occluded) for the backend LMCMC_ISECT_BACKEND
+    names, read on each call as the JAX package's switch reads it:
+    '' or 'chunkwalk' the chunk walk (its resident form when the pack is
+    at most LMC_CW_VMEM_BYTES bytes), 'pallas' the culled sweep (the JAX
+    package's Pallas sweep, ported as ops/sweep_isect.py), 'brute' brute
+    force. The XLA matmul sweep ('matmul') is not ported."""
+    backend = os.environ.get('LMCMC_ISECT_BACKEND', '')
+    if backend in ('', 'chunkwalk'):
+        from .chunkwalk import (intersect_chunkwalk, occluded_chunkwalk,
+                                use_resident)
+        resident = use_resident(scene.cw.pack)
+        return (partial(intersect_chunkwalk, scene, resident=resident),
+                partial(occluded_chunkwalk, scene, resident=resident))
+    if backend == 'pallas':
+        from .sweep_isect import intersect_sweep, occluded_sweep
+        return (partial(intersect_sweep, scene),
+                partial(occluded_sweep, scene))
+    if backend == 'brute':
+        return (partial(intersect_bruteforce, scene),
+                partial(occluded_bruteforce, scene))
+    raise ValueError(f'LMCMC_ISECT_BACKEND={backend!r}: the port has the '
+                     f"backends 'chunkwalk', 'pallas' and 'brute' (the XLA "
+                     f"matmul sweep is not ported)")
 
 
 # ---------------------------------------------------------------------------

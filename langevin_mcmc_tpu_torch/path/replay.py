@@ -458,3 +458,32 @@ def path_grad(scene, opts, rec, max_dim=None, bake=None):
         (g,) = torch.autograd.grad(f.sum(), offset)
     finite = torch.isfinite(g).all(-1, keepdim=True)
     return torch.where(finite, g, torch.zeros_like(g))
+
+
+def path_grad_hessian(scene, opts, rec, max_dim=None, bake=None):
+    """Gradient [C, 2D] and dense Hessian [C, 2D, 2D] of log-luminance
+    w.r.t. the PSS offset. Lanes are independent, so the summed
+    log-luminance gives every lane's gradient g in one backward pass (with
+    its graph kept), and row i of every lane's Hessian in one more backward
+    pass of sum(g[:, i]): 2D passes in all. A lane whose gradient or
+    Hessian is not finite gets zeros in both."""
+    C = rec.time.shape[0]
+    max_dim = 2 * rec.max_depth if max_dim is None else max_dim
+    with torch.enable_grad():
+        offset = torch.zeros((C, max_dim), device=rec.time.device,
+                             requires_grad=True)
+        f = log_luminance_fn(scene, opts, rec, bake=bake)(offset)
+        (g,) = torch.autograd.grad(f.sum(), offset, create_graph=True)
+        rows = []
+        for i in range(max_dim):
+            (h_i,) = torch.autograd.grad(g[:, i].sum(), offset,
+                                         retain_graph=i + 1 < max_dim,
+                                         allow_unused=True)
+            rows.append(torch.zeros_like(offset) if h_i is None else h_i)
+    g = g.detach()
+    h = torch.stack(rows, 1)
+    finite = (torch.isfinite(g).all(-1)
+              & torch.isfinite(h).all(-1).all(-1))[:, None]
+    g = torch.where(finite, g, torch.zeros_like(g))
+    h = torch.where(finite[..., None], h, torch.zeros_like(h))
+    return g, h

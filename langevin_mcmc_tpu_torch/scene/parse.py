@@ -126,7 +126,7 @@ def _parse_shape_transform(node):
 
 
 _UNPORTED_OPTIONS = {
-    'h2mc': 'H2MC', 'largestepmultiplexed': 'multiplexed large steps',
+    'largestepmultiplexed': 'multiplexed large steps',
     'samplecache': 'cache-seeded large steps',
     'uselightcoordinatesampling': 'light-coordinate sampling'}
 
@@ -145,7 +145,7 @@ def _parse_options(node):
         'uniformmixprob': ('uniform_mixing_probability', float),
         'numchains': ('num_chains', int), 'seedoffset': ('seed_offset', int),
         'reportintervalspp': ('report_interval_spp', int),
-        'mala': ('mala', None),
+        'mala': ('mala', None), 'h2mc': ('h2mc', None),
         'mala-stepsize': ('mala_stepsize', float),
         'mala-gn': ('mala_gn', float),
     }
@@ -162,7 +162,11 @@ def _parse_options(node):
             continue
         field, conv = keymap[name]
         kw[field] = (val == 'true') if conv is None else conv(val)
-    return Options().replace(**kw)
+    opts = Options().replace(**kw)
+    if opts.integrator == 'mcmc' and not (opts.mala or opts.h2mc):
+        raise NotImplementedError('isotropic-only small steps (neither MALA '
+                                  'nor H2MC) are not ported yet')
+    return opts
 
 
 def parse_scene_host(filename, film_wh=None):
@@ -280,8 +284,10 @@ def parse_scene_host(filename, film_wh=None):
     return host, options, output_name
 
 
-def parse_scene(filename, film_wh=None, device='cpu'):
-    """Parse a scene XML file. Returns (SceneData, Options, output_name)."""
+def parse_scene(filename, film_wh=None, device='cuda'):
+    """Parse a scene XML file onto `device` (the card by default; a machine
+    without one must ask for device='cpu').
+    Returns (SceneData, Options, output_name)."""
     host, options, output_name = parse_scene_host(filename, film_wh)
     return build_scene(host, device), options, output_name
 

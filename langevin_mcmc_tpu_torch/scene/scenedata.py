@@ -37,12 +37,14 @@ HOST_FIELDS = (
 
 @dataclasses.dataclass
 class ChunkWalkTables:
-    """Morton-ordered packed triangle chunks for the chunk-walk kernel."""
-    pack: torch.Tensor       # [K, 16, 128] f32 (rows 0-8 frame, 9-11 trans, 12 valid)
-    ids: torch.Tensor        # [K, 128] int32 original triangle ids
+    """Morton-ordered packed triangle chunks of TC triangles: 128 for the
+    chunk walk (``ops/chunkwalk.py``), 512 for the culled sweep
+    (``ops/sweep_isect.py``)."""
+    pack: torch.Tensor       # [K, 16, TC] f32 (rows 0-8 frame, 9-11 trans, 12 valid)
+    ids: torch.Tensor        # [K, TC] int32 original triangle ids
     chunk_lo: torch.Tensor   # [K, 3]
     chunk_hi: torch.Tensor   # [K, 3]
-    scene_lo: torch.Tensor   # [3]
+    scene_lo: torch.Tensor   # [3] corner of the box the ray sort quantises
     scene_hi: torch.Tensor   # [3]
 
 
@@ -72,6 +74,7 @@ class SceneData:
     bsphere_radius: float
     camera: Camera
     cw: ChunkWalkTables
+    sweep: ChunkWalkTables
     num_tris: int
     num_lights: int
     width: int
@@ -117,12 +120,16 @@ def build_tri_geom(tri_p0, tri_n0, tri_st):
     return g
 
 
-def build_scene(host, device='cpu'):
+def build_scene(host, device='cuda'):
     """SceneData on `device` from host arrays (keys: HOST_FIELDS plus
-    'camera', a dict of camera_arrays)."""
-    from ..ops.chunkwalk import prep_tables
+    'camera', a dict of camera_arrays). The default is the card; a machine
+    without one must ask for device='cpu'."""
+    from ..ops import chunkwalk, sweep_isect
     check_supported(host)
     device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to build the "
+                           "scene on the CPU")
     f32 = lambda k: torch.as_tensor(np.array(host[k], np.float32),
                                     device=device)
     i32 = lambda k: torch.as_tensor(np.array(host[k], np.int32),
@@ -130,13 +137,19 @@ def build_scene(host, device='cpu'):
     tri_p = np.asarray(host['tri_p'], np.float32)
     tri_n = np.asarray(host['tri_n'], np.float32)
     tri_st = np.asarray(host['tri_st'], np.float32)
-    pack, ids, clo, chi = prep_tables(
-        np.asarray(host['isect_B']), np.asarray(host['isect_C']),
-        np.asarray(host['isect_ok']), tri_p[0])
+    woop = (np.asarray(host['isect_B']), np.asarray(host['isect_C']),
+            np.asarray(host['isect_ok']), tri_p[0])
     t = lambda a: torch.as_tensor(a, device=device)
+    pack, ids, clo, chi = chunkwalk.prep_tables(*woop)
     cw = ChunkWalkTables(
         pack=t(pack), ids=t(ids), chunk_lo=t(clo), chunk_hi=t(chi),
         scene_lo=t(clo.min(0)), scene_hi=t(chi.max(0)))
+    # the sweep sorts rays in the vertex bounding box, as the JAX sweep does
+    pack, ids, clo, chi = sweep_isect.prep_tables(*woop)
+    verts = tri_p[0].reshape(-1, 3)
+    sweep = ChunkWalkTables(
+        pack=t(pack), ids=t(ids), chunk_lo=t(clo), chunk_hi=t(chi),
+        scene_lo=t(verts.min(0)), scene_hi=t(verts.max(0)))
     cam = camera_from_arrays(host['camera'], device)
     lw = np.asarray(host['light_weight'], np.float32)
     return SceneData(
@@ -154,7 +167,7 @@ def build_scene(host, device='cpu'):
         light_ntri=i32('light_ntri'), light_inv_area=f32('light_inv_area'),
         bsphere_center=f32('bsphere_center'),
         bsphere_radius=float(np.float32(host['bsphere_radius'])),
-        camera=cam, cw=cw, num_tris=int(tri_p.shape[1]),
+        camera=cam, cw=cw, sweep=sweep, num_tris=int(tri_p.shape[1]),
         num_lights=int(host['num_lights']), width=cam.width,
         height=cam.height, light_weight_sum=float(lw.sum()),
         device=device)

@@ -1,7 +1,8 @@
 """Generated test scenes (numpy only): a tessellated Phong torus in a
 diffuse box lit by one quad area light, written as OBJ files plus a
-Mitsuba-0.5 scene XML with a <dpt> block for MCMC with MALA. Both the JAX
-package's parser and the port's read the files.
+Mitsuba-0.5 scene XML whose <dpt> block selects MCMC with MALA or H2MC
+small steps, or plain MC. Both the JAX package's parser and the port's
+read the files.
 
     python -m langevin_mcmc_tpu_torch.testscenes out_dir [--small]
 """
@@ -66,10 +67,14 @@ _LIGHT = _quad((-1.5, -1.5, 5.9), (-1.5, 1.5, 5.9), (1.5, 1.5, 5.9),
 
 
 def write_scene(out_dir, small=False, width=1024, height=768, max_depth=8,
-                num_init_samples=300000):
+                num_init_samples=300000, kernel='mala', integrator='mcmc'):
     """Write the OBJ files and scene.xml into out_dir; returns the XML path.
     small=True gives a ~1,000-triangle torus for tests. The <dpt> block
-    holds the flagship's spp 4, 65,536 chains and directspp 1."""
+    holds the flagship's spp 4, 65,536 chains and directspp 1, the
+    integrator ('mcmc' or 'mc') and the small-step kernel of 'mcmc'
+    ('mala' or 'h2mc')."""
+    if kernel not in ('mala', 'h2mc') or integrator not in ('mcmc', 'mc'):
+        raise ValueError(f'kernel {kernel!r}, integrator {integrator!r}')
     os.makedirs(out_dir, exist_ok=True)
     nu, nv = SMALL_TORUS_SEGMENTS if small else TORUS_SEGMENTS
     _write_obj(os.path.join(out_dir, 'torus.obj'), *torus_mesh(nu, nv))
@@ -83,7 +88,7 @@ def write_scene(out_dir, small=False, width=1024, height=768, max_depth=8,
     xml = f'''<?xml version='1.0' encoding='utf-8'?>
 <scene version="0.5.0">
     <dpt>
-        <string  name="integrator" value="mcmc"/>
+        <string  name="integrator" value="{integrator}"/>
         <integer name="mindepth" value="-1"/>
         <integer name="maxdepth" value="{max_depth}"/>
         <boolean name="bidirectional" value="true"/>
@@ -91,7 +96,7 @@ def write_scene(out_dir, small=False, width=1024, height=768, max_depth=8,
         <integer name="numchains" value="65536"/>
         <integer name="numinitsamples" value="{num_init_samples}"/>
         <integer name="directspp" value="1"/>
-        <boolean name="mala" value="true"/>
+        <boolean name="{kernel}" value="true"/>
     </dpt>
     <sensor type="perspective">
         <float name="fov" value="60"/>
@@ -154,5 +159,8 @@ if __name__ == '__main__':
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('out_dir')
     ap.add_argument('--small', action='store_true')
+    ap.add_argument('--kernel', choices=('mala', 'h2mc'), default='mala')
+    ap.add_argument('--integrator', choices=('mcmc', 'mc'), default='mcmc')
     args = ap.parse_args()
-    print(write_scene(args.out_dir, small=args.small))
+    print(write_scene(args.out_dir, small=args.small, kernel=args.kernel,
+                      integrator=args.integrator))

@@ -302,7 +302,7 @@ def test_mcmc_matches_mc_mean_fast():
     from langevin_mcmc_tpu_torch.scene.parse import parse_scene
     from langevin_mcmc_tpu_torch.integrators.pathtrace import render_mc
     from langevin_mcmc_tpu_torch.integrators.mlt import render_mlt
-    scene, opts, _ = parse_scene(LCBOX, film_wh=(32, 24))
+    scene, opts, _ = parse_scene(LCBOX, film_wh=(32, 24), device='cpu')
     opts = opts.replace(max_depth=3, direct_spp=16, num_chains=256,
                         num_init_samples=4096, large_step_probability=0.3)
     with torch.no_grad():

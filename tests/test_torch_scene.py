@@ -94,7 +94,9 @@ _CUT = {
     'envmap emitters': '<emitter type="envmap"/>',
     'moving geometry': '<shape type="obj"><string name="filename" '
     'value="f.obj"/><animation name="toWorld"/></shape>',
-    'H2MC': '<dpt><boolean name="h2mc" value="true"/></dpt>',
+    # H2MC is ported; an MCMC block with neither MALA nor H2MC (the
+    # isotropic-only small step) is what is still cut
+    'H2MC': '<dpt><string name="integrator" value="mcmc"/></dpt>',
     'multiplexed large steps': '<dpt><boolean name="largestepmultiplexed" '
     'value="true"/></dpt>',
     'light-coordinate sampling': '<dpt><boolean '
@@ -108,4 +110,4 @@ def test_cut_features_raise(tmp_path, feature):
     with open(xml, 'w') as f:
         f.write(f'<scene version="0.5.0">{_CUT[feature]}</scene>')
     with pytest.raises(NotImplementedError, match=feature):
-        parse_scene(xml)
+        parse_scene(xml, device='cpu')
