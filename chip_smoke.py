@@ -6,14 +6,20 @@ Phases (any failure exits non-zero before the last line is printed):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
   2. the build of every kernel source in langevin_mcmc_tpu_torch/csrc/ (one
      nvcc per source, in parallel, linked into one library);
-  3. the chunk walk (K1 closest hit, K2 any hit) against its plain torch
-     version on the generated flagship scene (24,576-triangle torus,
-     65,536 rays: half camera rays, half from surface points in random
-     directions with 30% of those dead), with CUDA-event timings;
-  3b. on the same rays, the chunk walk's resident form (K3, both variants)
-     and the culled sweep (K4, both variants) against their plain
-     versions, and the sweep's t against the chunk walk's on every hit
-     (the ids may differ only on exact ties of t, which are counted);
+  3. on the generated flagship scene (24,576-triangle torus, 65,536 rays:
+     half camera rays, half from surface points in random directions with
+     30% of those dead), with CUDA-event timings:
+     - the time of the torch chunk lists (_block_chunk_lists) that the
+       staged walk no longer needs, and the chunk ranges per ray block S
+       and grid the staged walk uses at 65,536 rays and at the large
+       step's 4,261;
+     - the staged walk's chunk ranges per ray block S swept at both ray
+       counts, each first checked equal;
+     - the staged chunk walk (K1 closest hit, K2 any hit) against its plain
+       torch version (_block_chunk_lists + walk_reference), its resident
+       form (K3, both variants) and the culled sweep (K4, both variants)
+       against theirs, and the sweep's t against the chunk walk's on every
+       hit (the ids may differ only on exact ties of t, which are counted);
   4. path generation on the card against the CPU plain path on a small
      generated scene (same tape);
   5. path A, the MALA render through the CLI entry point: 1024x768,
@@ -30,7 +36,8 @@ launch counts are reset just before each path and read just after).
 The line before the last two is {"kernels": [...]}: per kernel its
 launches on its path, max |error| against the plain version, its time and
 the plain version's (ms), and its bound: the larger of the f32 operations
-of the ray-triangle tests this run's data needs (40 per test) over the
+this run's data needs (40 per ray-triangle test; for the staged walk also
+25 per ray-AABB slab test, 256 rays x all chunks per block) over the
 67 TFLOP/s f32 peak and its bytes (each input read once, each output
 written once) over 3.35 TB/s (H100 SXM data sheet). No PyTorch call
 computes a closest-hit ray query, so library_ms is null.
@@ -52,6 +59,7 @@ INIT_SAMPLES = 300000   # numinitsamples of the flagship render
 CHUNK = 32768           # wavefront of the bootstrap and direct passes
 RESIDENT_BYTES = 6291456  # LMC_CW_VMEM_BYTES of path C
 OPS_PER_TEST = 40       # f32 operations of one ray-triangle test
+OPS_PER_SLAB = 25       # f32 operations of one ray-AABB slab test
 PEAK_F32 = 67e12        # H100 SXM f32 peak, FLOP/s
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3, bytes/s
 
@@ -126,10 +134,11 @@ def nbytes(*xs):
     return sum(x.numel() * x.element_size() for x in xs)
 
 
-def bound(tests, in_bytes, out_bytes):
-    """(bound_ms, bound_by): the larger of the operations' and the bytes'
-    least times on the card."""
-    ops_ms = OPS_PER_TEST * tests / PEAK_F32 * 1e3
+def bound(tests, in_bytes, out_bytes, slab_tests=0):
+    """(bound_ms, bound_by): the larger of the operations' (ray-triangle
+    and ray-AABB slab tests) and the bytes' least times on the card."""
+    ops_ms = (OPS_PER_TEST * tests + OPS_PER_SLAB * slab_tests) \
+        / PEAK_F32 * 1e3
     bytes_ms = (in_bytes + out_bytes) / PEAK_BYTES * 1e3
     return (ops_ms, 'operations') if ops_ms >= bytes_ms \
         else (bytes_ms, 'bytes')
@@ -188,20 +197,43 @@ def compare(name, got, want, any_hit):
 
 
 def kernel_row(name, source, replaces, kernel, plain, any_hit, tests,
-               in_bytes, rays):
+               in_bytes, rays, slab_tests=0):
     got = kernel()
     want = plain()
     torch.cuda.synchronize()
     err = compare(name, got, want, any_hit)
     ms = cuda_ms(kernel)
     plain_ms = cuda_ms(plain)
-    bound_ms, bound_by = bound(tests, in_bytes, rays * (1 if any_hit else 16))
+    bound_ms, bound_by = bound(tests, in_bytes, rays * (1 if any_hit else 16),
+                               slab_tests)
     log(f'{name}: equal to the plain version (max |err| {err}); kernel '
         f'{ms:.3f} ms, plain {plain_ms:.3f} ms, {tests:.4g} ray-triangle '
-        f'tests, bound {bound_ms:.3f} ms ({bound_by})')
+        f'tests + {slab_tests:.4g} slab tests, bound {bound_ms:.3f} ms '
+        f'({bound_by})')
     return dict(name=name, route='cuda', source=source, replaces=replaces,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
+
+
+def staged_table(scene, o, d, rng):
+    """The staged walk timed on these rays at several chunk ranges per
+    block S (the default marked), each first checked equal to the
+    default."""
+    from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
+    tabs = (scene.cw.pack, scene.cw.ids, scene.cw.chunk_lo, scene.cw.chunk_hi)
+    nb, K = o.shape[0] // cw.RAY_BLOCK, tabs[0].shape[0]
+    S0 = cw.split_count(nb, K)
+    ref = [cw.walk_staged(*tabs, o, d, rng, a) for a in (False, True)]
+    for S in sorted({1, 2, 4, 8, 16, 32, 64, S0, K}):
+        if S > K:
+            continue
+        row = []
+        for a in (False, True):
+            fn = lambda: cw.walk_staged(*tabs, o, d, rng, a, splits=S)
+            compare(f'staged S={S}', fn(), ref[a], a)
+            row.append(cuda_ms(fn))
+        log(f'  {o.shape[0]} rays, S={S}{" (default)" if S == S0 else ""}, '
+            f'{nb * S} CTAs: closest {row[0]:.3f} ms, any {row[1]:.3f} ms')
 
 
 def check_kernels(scene):
@@ -212,38 +244,57 @@ def check_kernels(scene):
     from langevin_mcmc_tpu_torch.ops import sweep_isect as sw
     org, d, mn, mx = kernel_rays(scene, 65536, seed=7)
     R = org.shape[0]
-    (chunk_idx, counts, o, dd, rng), _ = cw.prepare_rays(scene.cw, org, d,
-                                                         mn, mx)
+    (o, dd, rng), _ = cw.sort_rays(scene.cw, org, d, mn, mx)
+    tabs = (scene.cw.pack, scene.cw.ids, scene.cw.chunk_lo, scene.cw.chunk_hi)
+    lists = lambda: cw._block_chunk_lists(o, dd, rng[:, 0], rng[:, 1],
+                                          scene.cw.chunk_lo, scene.cw.chunk_hi)
+    chunk_idx, counts = lists()
     args = (scene.cw.pack, scene.cw.ids, chunk_idx, counts, o, dd, rng)
     torch.cuda.synchronize()
-    log(f'kernel inputs: {o.shape[0]} rays, {counts.shape[0]} blocks, '
-        f'{scene.cw.pack.shape[0]} chunks, mean list length '
-        f'{counts.float().mean().item():.2f}')
+    nb, K = counts.shape[0], scene.cw.pack.shape[0]
+    log(f'kernel inputs: {o.shape[0]} rays, {nb} blocks, {K} chunks, mean '
+        f'list length {counts.float().mean().item():.2f}')
+    log(f'chunk lists in torch (_block_chunk_lists, which the staged walk '
+        f'no longer needs): {cuda_ms(lists):.3f} ms at {o.shape[0]} rays')
+    large = int(0.05 * 65536 * 1.3) + 1   # the large step's lanes
+    (lo_, ld_, lr_), _ = cw.sort_rays(scene.cw, org[:large], d[:large],
+                                      mn[:large], mx[:large])
+    for n in (o.shape[0], lo_.shape[0]):
+        S = cw.split_count(n // cw.RAY_BLOCK, K)
+        log(f'split: {n} rays = {n // cw.RAY_BLOCK} blocks, S = {S} chunk '
+            f'ranges per block, grid {n // cw.RAY_BLOCK * S} CTAs')
+    log('staged walk, chunk ranges per block S (CUDA-event ms):')
+    staged_table(scene, o, dd, rng)
+    staged_table(scene, lo_, ld_, lr_)
     cw_src = 'langevin_mcmc_tpu_torch/csrc/chunkwalk.cu'
-    cw_in = nbytes(*args)
     tests_c = int(counts.sum()) * cw.RAY_BLOCK * cw.TRI_CHUNK
     tests_a = int(blocks_until_occluded(scene.cw.pack, *args[2:]).sum()) \
         * cw.RAY_BLOCK * cw.TRI_CHUNK
+    slab = nb * cw.RAY_BLOCK * K
     rows = {}
-    for resident, (closest, anyhit, rep_c, rep_a) in (
-            (False, ('chunkwalk_closest_hit', 'chunkwalk_any_hit',
-                     'langevin_mcmc_tpu/ops/chunkwalk.py:157',
-                     'langevin_mcmc_tpu/ops/chunkwalk.py:180')),
-            (True, ('chunkwalk_resident_closest_hit',
-                    'chunkwalk_resident_any_hit',
-                    'langevin_mcmc_tpu/ops/chunkwalk.py:280',
-                    'langevin_mcmc_tpu/ops/chunkwalk.py:315'))):
-        sfx = '_resident' if resident else ''
-        rows['closest_hit' + sfx] = kernel_row(
-            closest, cw_src, rep_c,
-            lambda: cw.walk(*args, any_hit=False, resident=resident),
-            lambda: cw.walk_reference(*args, any_hit=False), False,
-            tests_c, cw_in, R)
-        rows['any_hit' + sfx] = kernel_row(
-            anyhit, cw_src, rep_a,
-            lambda: cw.walk(*args, any_hit=True, resident=resident),
-            lambda: cw.walk_reference(*args, any_hit=True), True,
-            tests_a, cw_in, R)
+    for a, key, name, rep in (
+            (False, 'split_closest_hit', 'chunkwalk_split_closest_hit',
+             'langevin_mcmc_tpu/ops/chunkwalk.py:157'),
+            (True, 'split_any_hit', 'chunkwalk_split_any_hit',
+             'langevin_mcmc_tpu/ops/chunkwalk.py:180')):
+        rows[key] = kernel_row(
+            name, cw_src, rep,
+            lambda: cw.walk_staged(*tabs, o, dd, rng, a),
+            lambda: cw.walk_reference(scene.cw.pack, scene.cw.ids, *lists(),
+                                      o, dd, rng, a), a,
+            tests_a if a else tests_c, nbytes(*tabs, o, dd, rng), R,
+            slab_tests=slab)
+    cw_in = nbytes(*args)
+    for a, key, name, rep in (
+            (False, 'closest_hit_resident', 'chunkwalk_resident_closest_hit',
+             'langevin_mcmc_tpu/ops/chunkwalk.py:280'),
+            (True, 'any_hit_resident', 'chunkwalk_resident_any_hit',
+             'langevin_mcmc_tpu/ops/chunkwalk.py:315')):
+        rows[key] = kernel_row(
+            name, cw_src, rep,
+            lambda: cw.walk_resident(*args, any_hit=a),
+            lambda: cw.walk_reference(*args, any_hit=a), a,
+            tests_a if a else tests_c, cw_in, R)
 
     (mask, so, sd, srng), _ = sw.prepare_rays(scene.sweep, org, d, mn, mx)
     sargs = (scene.sweep.pack, scene.sweep.ids, mask, so, sd, srng)
@@ -415,7 +466,8 @@ def main():
         f'card): {rate_a / rate_b:.3f}')
     _, launch_c = render('path C (MC)', xml_mc,
                          {'LMC_CW_VMEM_BYTES': str(RESIDENT_BYTES)})
-    for key, launches in (('closest_hit', launch_a), ('any_hit', launch_a),
+    for key, launches in (('split_closest_hit', launch_a),
+                          ('split_any_hit', launch_a),
                           ('sweep_closest_hit', launch_b),
                           ('sweep_any_hit', launch_b),
                           ('closest_hit_resident', launch_c),

@@ -5,14 +5,19 @@
    Morton-ordered into 128-triangle chunks, each packed as [16, 128] f32
    rows (Woop inverse frame 0-8, translation 9-11, valid 12) with its
    int32 ids beside it, plus per-chunk AABBs.
-2. Torch stage: pad to 256-ray blocks, sort rays dead-last by (origin
-   Morton cell, direction octant), slab-test every (ray, chunk) AABB pair,
-   OR-reduce per block and compact each block's hit chunks into an
-   ascending list with a count.
-3. The walk (``walk``): the CUDA kernel ``csrc/chunkwalk.cu`` for CUDA
-   tensors — closest hit or any hit, each with the chunks staged in shared
-   memory or read resident from L2 — and ``walk_reference``, its plain
-   torch version with the same contract, for CPU tensors.
+2. Torch stage (``sort_rays``): pad to 256-ray blocks and sort rays
+   dead-last by (origin Morton cell, direction octant).
+3. The walk, in one of two forms (``csrc/chunkwalk.cu`` on CUDA tensors):
+   * staged (``walk_staged``, the default): the kernel slab-tests each
+     block's rays against the chunk AABBs itself, walks the hit chunks
+     through a ring of shared-memory buffers, and splits each block's
+     chunks into ranges walked by separate CTAs;
+   * resident (``walk_resident``): the torch stage also builds each
+     block's ascending list of hit chunks (``_block_chunk_lists``,
+     ``prepare_rays``), and the kernel reads rows straight from L2.
+   Both compute one function, closest hit or any hit, whose plain torch
+   version ``_block_chunk_lists`` + ``walk_reference`` runs for CPU
+   tensors.
 
 The resident form is used when the pack is at most ``LMC_CW_VMEM_BYTES``
 bytes (default 0: never), the JAX package's switch between its two walk
@@ -31,10 +36,14 @@ RAY_BLOCK = 256
 TRI_CHUNK = 128
 PACK_ROWS = 16
 BIG = 3.0e38
+# the staged walk: CTAs it aims for (chunk ranges per ray block =
+# ceil(SPLIT_CTAS / blocks)), and the most chunks one range may hold
+SPLIT_CTAS = 8192
+MAX_RANGE = 1024
 
-# launches of the CUDA kernel, per variant; the plain version never counts
-launch_counts = {'closest_hit': 0, 'any_hit': 0, 'closest_hit_resident': 0,
-                 'any_hit_resident': 0}
+# launches of the CUDA kernels, per variant; the plain version never counts
+launch_counts = {'split_closest_hit': 0, 'split_any_hit': 0,
+                 'closest_hit_resident': 0, 'any_hit_resident': 0}
 
 
 def use_resident(pack):
@@ -251,13 +260,84 @@ def walk_reference(pack, ids, chunk_idx, counts, org, d, rng, any_hit):
 
 
 # ---------------------------------------------------------------------------
-# the walk: CUDA kernel
+# the walk: CUDA kernels
 # ---------------------------------------------------------------------------
 
-def walk(pack, ids, chunk_idx, counts, org, d, rng, any_hit, resident=False):
-    """The chunk walk over padded, sorted rays. CPU tensors run
-    walk_reference (the function of both forms); CUDA tensors launch the
-    kernel, staged or resident (or raise)."""
+def _check_rays(org, d, rng, nb, dev):
+    rp = nb * RAY_BLOCK
+    cuda_build.check(org, 'org', torch.float32, (rp, 3), dev)
+    cuda_build.check(d, 'dir', torch.float32, (rp, 3), dev)
+    cuda_build.check(rng, 'rng', torch.float32, (rp, 2), dev)
+
+
+def split_count(num_blocks, num_chunks):
+    """S, the chunk ranges per ray block of the staged walk: about
+    SPLIT_CTAS CTAs at any ray count, at most MAX_RANGE chunks a range."""
+    s = max(-(-SPLIT_CTAS // max(num_blocks, 1)),
+            -(-num_chunks // MAX_RANGE))
+    return max(1, min(s, num_chunks))
+
+
+def walk_staged(pack, ids, chunk_lo, chunk_hi, org, d, rng, any_hit,
+                splits=None, chunk_mask=None):
+    """The staged walk over padded, sorted rays: the chunk lists are built
+    from the AABBs chunk_lo / chunk_hi [K, 3]. CPU tensors run the plain
+    version (_block_chunk_lists + walk_reference); CUDA tensors launch the
+    kernel (or raise) with `splits` chunk ranges per block (default
+    split_count). chunk_mask is a test hook that no render path passes: a
+    uint8 [blocks, K] tensor that receives each block's chunk hit set, to
+    be held against _block_chunk_lists."""
+    if not org.is_cuda:
+        chunk_idx, counts = _block_chunk_lists(org, d, rng[:, 0], rng[:, 1],
+                                               chunk_lo, chunk_hi)
+        return walk_reference(pack, ids, chunk_idx, counts, org, d, rng,
+                              any_hit)
+    dev = org.device
+    nb = org.shape[0] // RAY_BLOCK
+    K = pack.shape[0]
+    rp = nb * RAY_BLOCK
+    check = cuda_build.check
+    check(pack, 'pack', torch.float32, (K, PACK_ROWS, TRI_CHUNK), dev)
+    check(ids, 'ids', torch.int32, (K, TRI_CHUNK), dev)
+    check(chunk_lo, 'chunk_lo', torch.float32, (K, 3), dev)
+    check(chunk_hi, 'chunk_hi', torch.float32, (K, 3), dev)
+    _check_rays(org, d, rng, nb, dev)
+    if pack.data_ptr() % 16 or ids.data_ptr() % 16:
+        raise ValueError('pack and ids must be 16-byte aligned (cp.async)')
+    if chunk_mask is not None:
+        check(chunk_mask, 'chunk_mask', torch.uint8, (nb, K), dev)
+    splits = split_count(nb, K) if splits is None else splits
+    lib = cuda_build.load_library()
+    stream = cuda_build.stream_of(dev)
+    args = [x.data_ptr() for x in (pack, ids, chunk_lo, chunk_hi, org, d,
+                                   rng)] + [nb, K, splits]
+    mask_ptr = None if chunk_mask is None else chunk_mask.data_ptr()
+    if any_hit:
+        occ = torch.zeros(rp, dtype=torch.bool, device=dev)
+        err = lib.chunkwalk_staged_any(*args, occ.data_ptr(), mask_ptr,
+                                       stream)
+        variant, out = 'split_any_hit', occ
+    else:
+        out = (torch.empty(rp, dtype=torch.float32, device=dev),
+               torch.empty(rp, dtype=torch.int32, device=dev),
+               torch.empty(rp, dtype=torch.float32, device=dev),
+               torch.empty(rp, dtype=torch.float32, device=dev))
+        # the ranges' partials; the kernel writes `out` itself when S = 1
+        part = [torch.empty((splits if splits > 1 else 0, rp), dtype=x.dtype,
+                            device=dev) for x in out]
+        err = lib.chunkwalk_staged_closest(
+            *args, *(x.data_ptr() for x in part),
+            *(x.data_ptr() for x in out), mask_ptr, stream)
+        variant = 'split_closest_hit'
+    cuda_build.raise_on_error(err, f'chunk-walk {variant}')
+    launch_counts[variant] += 1
+    return out
+
+
+def walk_resident(pack, ids, chunk_idx, counts, org, d, rng, any_hit):
+    """The resident walk over padded, sorted rays and their block lists
+    (prepare_rays). CPU tensors run walk_reference; CUDA tensors launch
+    the kernel (or raise)."""
     if not org.is_cuda:
         return walk_reference(pack, ids, chunk_idx, counts, org, d, rng,
                               any_hit)
@@ -270,28 +350,23 @@ def walk(pack, ids, chunk_idx, counts, org, d, rng, any_hit, resident=False):
     check(ids, 'ids', torch.int32, (K, TRI_CHUNK), dev)
     check(chunk_idx, 'chunk_idx', torch.int32, (nb, K), dev)
     check(counts, 'counts', torch.int32, (nb,), dev)
-    check(org, 'org', torch.float32, (rp, 3), dev)
-    check(d, 'dir', torch.float32, (rp, 3), dev)
-    check(rng, 'rng', torch.float32, (rp, 2), dev)
+    _check_rays(org, d, rng, nb, dev)
     lib = cuda_build.load_library()
     stream = cuda_build.stream_of(dev)
     args = [x.data_ptr() for x in (pack, ids, chunk_idx, counts, org, d, rng)]
     if any_hit:
         occ = torch.empty(rp, dtype=torch.bool, device=dev)
-        err = lib.chunkwalk_any(*args, nb, K, int(resident), occ.data_ptr(),
-                                stream)
-        variant, out = 'any_hit', occ
+        err = lib.chunkwalk_resident_any(*args, nb, K, occ.data_ptr(), stream)
+        variant, out = 'any_hit_resident', occ
     else:
         t = torch.empty(rp, dtype=torch.float32, device=dev)
         tid = torch.empty(rp, dtype=torch.int32, device=dev)
         u = torch.empty(rp, dtype=torch.float32, device=dev)
         v = torch.empty(rp, dtype=torch.float32, device=dev)
-        err = lib.chunkwalk_closest(*args, nb, K, int(resident),
-                                    t.data_ptr(), tid.data_ptr(),
-                                    u.data_ptr(), v.data_ptr(), stream)
-        variant, out = 'closest_hit', (t, tid, u, v)
-    if resident:
-        variant += '_resident'
+        err = lib.chunkwalk_resident_closest(*args, nb, K, t.data_ptr(),
+                                             tid.data_ptr(), u.data_ptr(),
+                                             v.data_ptr(), stream)
+        variant, out = 'closest_hit_resident', (t, tid, u, v)
     cuda_build.raise_on_error(err, f'chunk-walk {variant}')
     launch_counts[variant] += 1
     return out
@@ -315,9 +390,9 @@ def pad_rays(org, d, min_t, max_t):
     return org, d, min_t, max_t
 
 
-def prepare_rays(cw, org, d, min_t, max_t):
-    """Pad (pad_rays), sort, and build the per-block chunk lists. Returns
-    the walk's inputs and the sort order (None for a single block)."""
+def sort_rays(cw, org, d, min_t, max_t):
+    """Pad (pad_rays) and sort. Returns the walk's rays (org, d, rng =
+    [min_t, max_t]) and the sort order (None for a single block)."""
     org, d, min_t, max_t = pad_rays(org, d, min_t, max_t)
     order = None
     if org.shape[0] > RAY_BLOCK:
@@ -325,11 +400,17 @@ def prepare_rays(cw, org, d, min_t, max_t):
                            alive=max_t >= min_t)
         org, d = org[order], d[order]
         min_t, max_t = min_t[order], max_t[order]
-    chunk_idx, counts = _block_chunk_lists(org, d, min_t, max_t,
-                                           cw.chunk_lo, cw.chunk_hi)
     rng = torch.stack([min_t, max_t], -1)
-    return (chunk_idx, counts, org.contiguous(), d.contiguous(),
-            rng.contiguous()), order
+    return (org.contiguous(), d.contiguous(), rng.contiguous()), order
+
+
+def prepare_rays(cw, org, d, min_t, max_t):
+    """sort_rays, then the per-block chunk lists of the resident form.
+    Returns the resident walk's inputs and the sort order."""
+    (org, d, rng), order = sort_rays(cw, org, d, min_t, max_t)
+    chunk_idx, counts = _block_chunk_lists(org, d, rng[:, 0], rng[:, 1],
+                                           cw.chunk_lo, cw.chunk_hi)
+    return (chunk_idx, counts, org, d, rng), order
 
 
 def _unsort(x, order, R):
@@ -351,21 +432,24 @@ def closest_result(t, tid, u, v, order, R):
             torch.where(hit, v, zero))
 
 
+def _walk(cw, org, d, min_t, max_t, any_hit, resident):
+    """Either form of the walk over the query's rays; returns its padded,
+    sorted output and the sort order."""
+    if resident:
+        args, order = prepare_rays(cw, org, d, min_t, max_t)
+        return walk_resident(cw.pack, cw.ids, *args, any_hit=any_hit), order
+    (o, dd, rng), order = sort_rays(cw, org, d, min_t, max_t)
+    return walk_staged(cw.pack, cw.ids, cw.chunk_lo, cw.chunk_hi, o, dd, rng,
+                       any_hit=any_hit), order
+
+
 def intersect_chunkwalk(scene, org, d, time, min_t, max_t, resident=False):
     """Closest hit. Returns (hit, tri_id, t, u, v)."""
-    cw = scene.cw
-    (chunk_idx, counts, o, dd, rng), order = prepare_rays(cw, org, d,
-                                                         min_t, max_t)
-    out = walk(cw.pack, cw.ids, chunk_idx, counts, o, dd, rng,
-               any_hit=False, resident=resident)
+    out, order = _walk(scene.cw, org, d, min_t, max_t, False, resident)
     return closest_result(*out, order, org.shape[0])
 
 
 def occluded_chunkwalk(scene, org, d, time, min_t, max_t, resident=False):
     """Any hit. Returns occluded [R] bool."""
-    cw = scene.cw
-    (chunk_idx, counts, o, dd, rng), order = prepare_rays(cw, org, d,
-                                                         min_t, max_t)
-    occ = walk(cw.pack, cw.ids, chunk_idx, counts, o, dd, rng, any_hit=True,
-               resident=resident)
+    occ, order = _walk(scene.cw, org, d, min_t, max_t, True, resident)
     return _unsort(occ, order, org.shape[0])

@@ -31,8 +31,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: argument types (pointers, then int sizes, then outputs,
 # then the stream)
 SIGNATURES = {
-    'chunkwalk_closest': [_P] * 7 + [_I] * 3 + [_P] * 4 + [_P],
-    'chunkwalk_any': [_P] * 7 + [_I] * 3 + [_P] + [_P],
+    'chunkwalk_staged_closest': [_P] * 7 + [_I] * 3 + [_P] * 9 + [_P],
+    'chunkwalk_staged_any': [_P] * 7 + [_I] * 3 + [_P] * 2 + [_P],
+    'chunkwalk_resident_closest': [_P] * 7 + [_I] * 2 + [_P] * 4 + [_P],
+    'chunkwalk_resident_any': [_P] * 7 + [_I] * 2 + [_P] + [_P],
     'sweep_closest': [_P] * 6 + [_I] * 2 + [_P] * 4 + [_P],
     'sweep_any': [_P] * 6 + [_I] * 2 + [_P] + [_P],
 }

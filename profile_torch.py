@@ -8,8 +8,11 @@ step up, then:
   1. times each stage of the step inclusively over 3 steps (host clock
      with a device sync around every call of the wrapped functions). A
      stage is wrapped by replacing its module attribute, so the timer sees
-     only calls made through that attribute (mod.fn(...)), not calls bound
-     by name at import time or made inside the same module;
+     the calls that look the name up in that module when they run
+     (mod.fn(...), or fn(...) inside mod), not names bound elsewhere at
+     import time (from mod import fn). The chunk walk's stages: sort_rays
+     (torch: pad, sort) and walk_staged (the kernel, which builds its own
+     chunk lists); prepare_rays / walk_resident are the resident form's;
   2. profiles 3 further steps with torch.profiler and prints the CUDA
      kernels by total device time, and their sum over the step time measured
      without syncs or profiler (the device-busy share).
@@ -76,8 +79,9 @@ def main():
                   (chain, '_perturb_and_grad'), (replay, 'replay_path'),
                   (replay, 'path_grad'), (replay, 'bake_frozen'),
                   (trace, 'generate_path_bidir'), (cache, 'query_knn'),
-                  (cache, 'push_batch'), (chunkwalk, 'walk'),
-                  (chunkwalk, 'prepare_rays'), (mlt, 'splat')]
+                  (cache, 'push_batch'), (chunkwalk, 'sort_rays'),
+                  (chunkwalk, 'walk_staged'), (chunkwalk, 'prepare_rays'),
+                  (chunkwalk, 'walk_resident'), (mlt, 'splat')]
         saved = []
         for mod, name in stages:
             fn = getattr(mod, name)

@@ -66,3 +66,47 @@ def assert_close_most(got, want, rtol, frac=0.01, atol=1e-9, err_msg=''):
         f'max rel {rel.max():.3g}; allowed {int(frac * n)})')
     assert near_miss <= max(1, int(0.02 * n)), (
         f'{err_msg}: {near_miss}/{n} lanes in (rtol, 10x rtol], rtol={rtol}')
+
+
+def planted_tie_case(scene, n_alive=700, n_dead=300, seed=11):
+    """Chunk-walk tables of `scene` (CPU) with exact ties planted, and rays
+    that hit them.
+
+    A triangle of chunk 0 is copied, rows and AABB, into another column of
+    chunk 0 under the id -2 and into column 0 of the last chunk under the
+    id -3, both smaller than its own id. So its closest hit must be the
+    chunk-0 copy with id -2: within a chunk a tie of t goes to the smaller
+    id, across chunks the earlier chunk wins. n_alive rays run along the
+    triangle's normal, from 0.01 away on either side, onto points inside
+    it: each is occluded within chunk 0, the first chunk of its block's
+    list. n_dead more rays are dead; the total is not a multiple of 256.
+    Returns (pack, ids, chunk_lo, chunk_hi, (org, d, min_t, max_t))."""
+    cw = scene.cw
+    pack, ids = cw.pack.clone(), cw.ids.clone()
+    lo, hi = cw.chunk_lo.clone(), cw.chunk_hi.clone()
+    last = pack.shape[0] - 1
+    a, b = (int(k) for k in torch.nonzero(pack[0, 12] > 0.5)[:2, 0])
+    pack[0, :, b] = pack[0, :, a]
+    ids[0, b] = -2
+    pack[last, :, 0] = pack[0, :, a]
+    ids[last, 0] = -3
+    lo[last] = torch.minimum(lo[last], lo[0])
+    hi[last] = torch.maximum(hi[last], hi[0])
+
+    v = scene.tri_p[0][int(cw.ids[0, a])].double().numpy()
+    e1, e2 = v[1] - v[0], v[2] - v[0]
+    n = np.cross(e1, e2)
+    n /= np.linalg.norm(n)
+    rng = np.random.default_rng(seed)
+    bc = rng.uniform(0.15, 0.45, (n_alive, 2))
+    p = v[0] + bc[:, :1] * e1 + bc[:, 1:] * e2
+    side = np.where(rng.uniform(size=(n_alive, 1)) < 0.5, -1.0, 1.0)
+    org = np.concatenate([p + 0.01 * side * n,
+                          rng.normal(size=(n_dead, 3))])
+    d = np.concatenate([-side * n, rng.normal(size=(n_dead, 3))])
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    mn = np.full(n_alive + n_dead, 1e-4)
+    mx = np.concatenate([np.full(n_alive, np.inf), np.zeros(n_dead)])
+    rays = tuple(torch.as_tensor(x, dtype=torch.float32)
+                 for x in (org, d, mn, mx))
+    return pack, ids, lo, hi, rays
