@@ -9,17 +9,21 @@ Phases (any failure exits non-zero before the last line is printed):
   3. on the generated flagship scene (24,576-triangle torus, 65,536 rays:
      half camera rays, half from surface points in random directions with
      30% of those dead), with CUDA-event timings:
-     - the time of the torch chunk lists (_block_chunk_lists) that the
-       staged walk no longer needs, and the chunk ranges per ray block S
-       and grid the staged walk uses at 65,536 rays and at the large
+     - the time of the torch stages that the kernels no longer need: the
+       chunk lists (_block_chunk_lists, K1-K3) and the sweep's visit mask
+       (_chunk_mask, K4); and the chunk ranges per ray block S and grid
+       each form of the walk kernel uses at 65,536 rays and at the large
        step's 4,261;
-     - the staged walk's chunk ranges per ray block S swept at both ray
-       counts, each first checked equal;
-     - the staged chunk walk (K1 closest hit, K2 any hit) against its plain
-       torch version (_block_chunk_lists + walk_reference), its resident
-       form (K3, both variants) and the culled sweep (K4, both variants)
-       against theirs, and the sweep's t against the chunk walk's on every
-       hit (the ids may differ only on exact ties of t, which are counted);
+     - each form's S swept at both ray counts, each S first checked equal
+       to the default;
+     - the staged chunk walk (K1 closest hit, K2 any hit) and its resident
+       form (K3, both variants) against their plain torch version
+       (_block_chunk_lists + walk_reference), the culled sweep (K4, both
+       variants) against its own (_chunk_mask + sweep_reference), each
+       with its time, its plain version's and its bound, at 65,536 rays
+       and again at the large step's; and the sweep's t against the chunk
+       walk's on every hit (the ids may differ only on exact ties of t,
+       which are counted);
   4. path generation on the card against the CPU plain path on a small
      generated scene (same tape);
   5. path A, the MALA render through the CLI entry point: 1024x768,
@@ -36,10 +40,10 @@ launch counts are reset just before each path and read just after).
 The line before the last two is {"kernels": [...]}: per kernel its
 launches on its path, max |error| against the plain version, its time and
 the plain version's (ms), and its bound: the larger of the f32 operations
-this run's data needs (40 per ray-triangle test; for the staged walk also
-25 per ray-AABB slab test, 256 rays x all chunks per block) over the
-67 TFLOP/s f32 peak and its bytes (each input read once, each output
-written once) over 3.35 TB/s (H100 SXM data sheet). No PyTorch call
+this run's data needs (40 per ray-triangle test, 25 per ray-AABB slab
+test: 256 rays x all chunks per block) over the 67 TFLOP/s f32 peak and
+its bytes (each input read once, each output written once) over 3.35 TB/s
+(H100 SXM data sheet). No PyTorch call
 computes a closest-hit ray query, so library_ms is null.
 The last line is {"ok": true, "device": {...}}.
 """
@@ -146,7 +150,8 @@ def bound(tests, in_bytes, out_bytes, slab_tests=0):
 
 def blocks_until_occluded(pack, chunk_idx, counts, org, d, rng):
     """Chunks each ray block visits before every one of its rays is
-    occluded (or its list ends): the work the any-hit variants need."""
+    occluded or dead (or its list ends): the work the any-hit variants
+    need, since a dead ray can hit nothing."""
     from langevin_mcmc_tpu_torch.ops.chunkwalk import RAY_BLOCK, _tile
     nb = counts.shape[0]
     o = org.reshape(nb, RAY_BLOCK, 3)
@@ -155,7 +160,7 @@ def blocks_until_occluded(pack, chunk_idx, counts, org, d, rng):
     cols = [x[..., None] for x in (o[..., 0], o[..., 1], o[..., 2],
                                    dd[..., 0], dd[..., 1], dd[..., 2],
                                    r[..., 0], r[..., 1])]
-    occ = torch.zeros((nb, RAY_BLOCK), dtype=torch.bool, device=org.device)
+    occ = ~(r[..., 1] >= r[..., 0])
     visited = torch.zeros(nb, dtype=torch.int64, device=org.device)
     for j in range(int(counts.max())):
         live = (j < counts) & ~occ.all(1)
@@ -215,25 +220,94 @@ def kernel_row(name, source, replaces, kernel, plain, any_hit, tests,
                 bound_by=bound_by, library_ms=None)
 
 
-def staged_table(scene, o, d, rng):
-    """The staged walk timed on these rays at several chunk ranges per
-    block S (the default marked), each first checked equal to the
-    default."""
+def split_table(label, walk, tabs, o, d, rng):
+    """A form of the walk kernel timed on these rays at several chunk
+    ranges per block S (the default marked), each first checked equal to
+    the default."""
     from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
-    tabs = (scene.cw.pack, scene.cw.ids, scene.cw.chunk_lo, scene.cw.chunk_hi)
     nb, K = o.shape[0] // cw.RAY_BLOCK, tabs[0].shape[0]
     S0 = cw.split_count(nb, K)
-    ref = [cw.walk_staged(*tabs, o, d, rng, a) for a in (False, True)]
+    ref = [walk(*tabs, o, d, rng, a) for a in (False, True)]
     for S in sorted({1, 2, 4, 8, 16, 32, 64, S0, K}):
         if S > K:
             continue
         row = []
         for a in (False, True):
-            fn = lambda: cw.walk_staged(*tabs, o, d, rng, a, splits=S)
-            compare(f'staged S={S}', fn(), ref[a], a)
+            fn = lambda: walk(*tabs, o, d, rng, a, splits=S)
+            compare(f'{label} S={S}', fn(), ref[a], a)
             row.append(cuda_ms(fn))
-        log(f'  {o.shape[0]} rays, S={S}{" (default)" if S == S0 else ""}, '
-            f'{nb * S} CTAs: closest {row[0]:.3f} ms, any {row[1]:.3f} ms')
+        log(f'  {label}, {o.shape[0]} rays, S={S}'
+            f'{" (default)" if S == S0 else ""}, {nb * S} CTAs: closest '
+            f'{row[0]:.3f} ms, any {row[1]:.3f} ms')
+
+
+def variant_rows(scene, o, dd, rng, so, sd, srng, tag):
+    """The six kernel variants on these sorted, padded rays (the chunk
+    walk's o, dd, rng; the sweep's so, sd, srng), each at its default S
+    against its plain version, timed, with its bound. Returns the rows of
+    the kernels JSON line, keyed by the launch-count name; tag is appended
+    to each printed name."""
+    from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
+    from langevin_mcmc_tpu_torch.ops import sweep_isect as sw
+    tabs = (scene.cw.pack, scene.cw.ids, scene.cw.chunk_lo, scene.cw.chunk_hi)
+    stabs = (scene.sweep.pack, scene.sweep.ids, scene.sweep.chunk_lo,
+             scene.sweep.chunk_hi)
+    lists = lambda: cw._block_chunk_lists(o, dd, rng[:, 0], rng[:, 1],
+                                          scene.cw.chunk_lo, scene.cw.chunk_hi)
+    mask_fn = lambda: sw._chunk_mask(so, sd, srng[:, 0], srng[:, 1],
+                                     scene.sweep.chunk_lo,
+                                     scene.sweep.chunk_hi)
+    chunk_idx, counts = lists()
+    mask = mask_fn()
+    n = o.shape[0]
+    nb, K = counts.shape[0], scene.cw.pack.shape[0]
+    cw_src = 'langevin_mcmc_tpu_torch/csrc/chunkwalk.cu'
+    tests_c = int(counts.sum()) * cw.RAY_BLOCK * cw.TRI_CHUNK
+    tests_a = int(blocks_until_occluded(scene.cw.pack, chunk_idx, counts, o,
+                                        dd, rng).sum()) \
+        * cw.RAY_BLOCK * cw.TRI_CHUNK
+    cw_in = nbytes(*tabs, o, dd, rng)
+    rows = {}
+    for walk, a, key, name, rep in (
+            (cw.walk_staged, False, 'split_closest_hit',
+             'chunkwalk_split_closest_hit',
+             'langevin_mcmc_tpu/ops/chunkwalk.py:157'),
+            (cw.walk_staged, True, 'split_any_hit', 'chunkwalk_split_any_hit',
+             'langevin_mcmc_tpu/ops/chunkwalk.py:180'),
+            (cw.walk_resident, False, 'closest_hit_resident',
+             'chunkwalk_resident_closest_hit',
+             'langevin_mcmc_tpu/ops/chunkwalk.py:280'),
+            (cw.walk_resident, True, 'any_hit_resident',
+             'chunkwalk_resident_any_hit',
+             'langevin_mcmc_tpu/ops/chunkwalk.py:315')):
+        rows[key] = kernel_row(
+            name + tag, cw_src, rep,
+            lambda: walk(*tabs, o, dd, rng, a),
+            lambda: cw.walk_reference(scene.cw.pack, scene.cw.ids, *lists(),
+                                      o, dd, rng, a), a,
+            tests_a if a else tests_c, cw_in, n,
+            slab_tests=nb * cw.RAY_BLOCK * K)
+
+    # the chunks each block visits, as lists, to count the any hit's tests
+    s_lists = torch.argsort((mask == 0).to(torch.int32), dim=1, stable=True)
+    tests_sa = int(blocks_until_occluded(
+        scene.sweep.pack, s_lists.to(torch.int32), mask.sum(1), so, sd,
+        srng).sum()) * sw.RAY_BLOCK * sw.TRI_CHUNK
+    sw_src = 'langevin_mcmc_tpu_torch/csrc/sweep.cu'
+    sw_in = nbytes(*stabs, so, sd, srng)
+    for a, key, rep, tests in (
+            (False, 'sweep_closest_hit',
+             'langevin_mcmc_tpu/ops/pallas_isect.py:129',
+             int(mask.sum()) * sw.RAY_BLOCK * sw.TRI_CHUNK),
+            (True, 'sweep_any_hit', 'langevin_mcmc_tpu/ops/pallas_isect.py:193',
+             tests_sa)):
+        rows[key] = kernel_row(
+            key + tag, sw_src, rep, lambda: sw.walk(*stabs, so, sd, srng, a),
+            lambda: sw.sweep_reference(scene.sweep.pack, scene.sweep.ids,
+                                       mask_fn(), so, sd, srng, a), a,
+            tests, sw_in, n,
+            slab_tests=so.shape[0] * scene.sweep.pack.shape[0])
+    return rows
 
 
 def check_kernels(scene):
@@ -244,79 +318,49 @@ def check_kernels(scene):
     from langevin_mcmc_tpu_torch.ops import sweep_isect as sw
     org, d, mn, mx = kernel_rays(scene, 65536, seed=7)
     R = org.shape[0]
-    (o, dd, rng), _ = cw.sort_rays(scene.cw, org, d, mn, mx)
-    tabs = (scene.cw.pack, scene.cw.ids, scene.cw.chunk_lo, scene.cw.chunk_hi)
+    large = int(0.05 * 65536 * 1.3) + 1   # the large step's lanes
+    forms = (('staged', cw.walk_staged, scene.cw, cw.sort_rays),
+             ('resident', cw.walk_resident, scene.cw, cw.sort_rays),
+             ('sweep', sw.walk, scene.sweep, sw.prepare_rays))
+    rays = {}   # (form, rays) -> sorted, padded (o, d, rng)
+    for form, _, tab, sort in forms:
+        for n in (R, large):
+            rays[form, n] = sort(tab, org[:n], d[:n], mn[:n], mx[:n])[0]
+    o, dd, rng = rays['staged', R]
+    so, sd, srng = rays['sweep', R]
     lists = lambda: cw._block_chunk_lists(o, dd, rng[:, 0], rng[:, 1],
                                           scene.cw.chunk_lo, scene.cw.chunk_hi)
+    mask_fn = lambda: sw._chunk_mask(so, sd, srng[:, 0], srng[:, 1],
+                                     scene.sweep.chunk_lo,
+                                     scene.sweep.chunk_hi)
     chunk_idx, counts = lists()
-    args = (scene.cw.pack, scene.cw.ids, chunk_idx, counts, o, dd, rng)
+    mask = mask_fn()
     torch.cuda.synchronize()
     nb, K = counts.shape[0], scene.cw.pack.shape[0]
-    log(f'kernel inputs: {o.shape[0]} rays, {nb} blocks, {K} chunks, mean '
-        f'list length {counts.float().mean().item():.2f}')
-    log(f'chunk lists in torch (_block_chunk_lists, which the staged walk '
-        f'no longer needs): {cuda_ms(lists):.3f} ms at {o.shape[0]} rays')
-    large = int(0.05 * 65536 * 1.3) + 1   # the large step's lanes
-    (lo_, ld_, lr_), _ = cw.sort_rays(scene.cw, org[:large], d[:large],
-                                      mn[:large], mx[:large])
-    for n in (o.shape[0], lo_.shape[0]):
-        S = cw.split_count(n // cw.RAY_BLOCK, K)
-        log(f'split: {n} rays = {n // cw.RAY_BLOCK} blocks, S = {S} chunk '
-            f'ranges per block, grid {n // cw.RAY_BLOCK * S} CTAs')
-    log('staged walk, chunk ranges per block S (CUDA-event ms):')
-    staged_table(scene, o, dd, rng)
-    staged_table(scene, lo_, ld_, lr_)
-    cw_src = 'langevin_mcmc_tpu_torch/csrc/chunkwalk.cu'
-    tests_c = int(counts.sum()) * cw.RAY_BLOCK * cw.TRI_CHUNK
-    tests_a = int(blocks_until_occluded(scene.cw.pack, *args[2:]).sum()) \
-        * cw.RAY_BLOCK * cw.TRI_CHUNK
-    slab = nb * cw.RAY_BLOCK * K
-    rows = {}
-    for a, key, name, rep in (
-            (False, 'split_closest_hit', 'chunkwalk_split_closest_hit',
-             'langevin_mcmc_tpu/ops/chunkwalk.py:157'),
-            (True, 'split_any_hit', 'chunkwalk_split_any_hit',
-             'langevin_mcmc_tpu/ops/chunkwalk.py:180')):
-        rows[key] = kernel_row(
-            name, cw_src, rep,
-            lambda: cw.walk_staged(*tabs, o, dd, rng, a),
-            lambda: cw.walk_reference(scene.cw.pack, scene.cw.ids, *lists(),
-                                      o, dd, rng, a), a,
-            tests_a if a else tests_c, nbytes(*tabs, o, dd, rng), R,
-            slab_tests=slab)
-    cw_in = nbytes(*args)
-    for a, key, name, rep in (
-            (False, 'closest_hit_resident', 'chunkwalk_resident_closest_hit',
-             'langevin_mcmc_tpu/ops/chunkwalk.py:280'),
-            (True, 'any_hit_resident', 'chunkwalk_resident_any_hit',
-             'langevin_mcmc_tpu/ops/chunkwalk.py:315')):
-        rows[key] = kernel_row(
-            name, cw_src, rep,
-            lambda: cw.walk_resident(*args, any_hit=a),
-            lambda: cw.walk_reference(*args, any_hit=a), a,
-            tests_a if a else tests_c, cw_in, R)
+    Ks = scene.sweep.pack.shape[0]
+    log(f'kernel inputs: {R} rays, {nb} blocks, {K} chunks of '
+        f'{cw.TRI_CHUNK} (mean list length {counts.float().mean().item():.2f})'
+        f', {Ks} of {sw.TRI_CHUNK} ({int(mask.sum())} (block, chunk) pairs '
+        f'visited)')
+    log(f'torch stages the kernels no longer need, at {R} rays: chunk lists '
+        f'(_block_chunk_lists, K1-K3) {cuda_ms(lists):.3f} ms, visit mask '
+        f'(_chunk_mask, K4) {cuda_ms(mask_fn):.3f} ms')
+    for form, _, tab, _ in forms:
+        for n in (R, large):
+            nbn = rays[form, n][0].shape[0] // cw.RAY_BLOCK
+            S = cw.split_count(nbn, tab.pack.shape[0])
+            log(f'split: {form}, {n} rays = {nbn} blocks, S = {S} chunk '
+                f'ranges per block, grid {nbn * S} CTAs')
+    log('chunk ranges per block S (CUDA-event ms):')
+    for form, walk, tab, _ in forms:
+        for n in (R, large):
+            split_table(form, walk, (tab.pack, tab.ids, tab.chunk_lo,
+                                     tab.chunk_hi), *rays[form, n])
 
-    (mask, so, sd, srng), _ = sw.prepare_rays(scene.sweep, org, d, mn, mx)
-    sargs = (scene.sweep.pack, scene.sweep.ids, mask, so, sd, srng)
-    visits = int(mask.sum())
-    lists = torch.argsort((mask == 0).to(torch.int32), dim=1, stable=True)
-    log(f'sweep inputs: {mask.shape[0]} blocks x {mask.shape[1]} chunks of '
-        f'{sw.TRI_CHUNK}, {visits} (block, chunk) pairs visited')
-    tests_sa = int(blocks_until_occluded(
-        scene.sweep.pack, lists.to(torch.int32), mask.sum(1), so, sd,
-        srng).sum()) * sw.RAY_BLOCK * sw.TRI_CHUNK
-    sw_src = 'langevin_mcmc_tpu_torch/csrc/sweep.cu'
-    sw_in = nbytes(*sargs)
-    rows['sweep_closest_hit'] = kernel_row(
-        'sweep_closest_hit', sw_src, 'langevin_mcmc_tpu/ops/pallas_isect.py:129',
-        lambda: sw.walk(*sargs, any_hit=False),
-        lambda: sw.sweep_reference(*sargs, any_hit=False), False,
-        visits * sw.RAY_BLOCK * sw.TRI_CHUNK, sw_in, R)
-    rows['sweep_any_hit'] = kernel_row(
-        'sweep_any_hit', sw_src, 'langevin_mcmc_tpu/ops/pallas_isect.py:193',
-        lambda: sw.walk(*sargs, any_hit=True),
-        lambda: sw.sweep_reference(*sargs, any_hit=True), True,
-        tests_sa, sw_in, R)
+    rows = variant_rows(scene, *rays['staged', R], *rays['sweep', R], '')
+    # the large step's rays: the same rows, printed only
+    variant_rows(scene, *rays['staged', large], *rays['sweep', large],
+                 f' at {rays["staged", large][0].shape[0]} rays')
 
     # the sweep against the chunk walk, through the whole queries
     z = torch.zeros(R, device=org.device)

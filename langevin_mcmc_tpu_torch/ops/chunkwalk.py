@@ -7,14 +7,14 @@
    int32 ids beside it, plus per-chunk AABBs.
 2. Torch stage (``sort_rays``): pad to 256-ray blocks and sort rays
    dead-last by (origin Morton cell, direction octant).
-3. The walk, in one of two forms (``csrc/chunkwalk.cu`` on CUDA tensors):
-   * staged (``walk_staged``, the default): the kernel slab-tests each
-     block's rays against the chunk AABBs itself, walks the hit chunks
-     through a ring of shared-memory buffers, and splits each block's
-     chunks into ranges walked by separate CTAs;
-   * resident (``walk_resident``): the torch stage also builds each
-     block's ascending list of hit chunks (``_block_chunk_lists``,
-     ``prepare_rays``), and the kernel reads rows straight from L2.
+3. The walk (``csrc/chunkwalk.cu`` on CUDA tensors): the kernel slab-tests
+   each block's rays against the chunk AABBs itself, splits each block's
+   hit chunks into ranges walked by separate CTAs and merges them, in one
+   of two forms:
+   * staged (``walk_staged``, the default): rows pass through a ring of
+     shared-memory buffers;
+   * resident (``walk_resident``): rows are read straight from global
+     memory, the pack staying in L2.
    Both compute one function, closest hit or any hit, whose plain torch
    version ``_block_chunk_lists`` + ``walk_reference`` runs for CPU
    tensors.
@@ -36,7 +36,7 @@ RAY_BLOCK = 256
 TRI_CHUNK = 128
 PACK_ROWS = 16
 BIG = 3.0e38
-# the staged walk: CTAs it aims for (chunk ranges per ray block =
+# the walk kernel: CTAs it aims for (chunk ranges per ray block =
 # ceil(SPLIT_CTAS / blocks)), and the most chunks one range may hold
 SPLIT_CTAS = 8192
 MAX_RANGE = 1024
@@ -263,112 +263,97 @@ def walk_reference(pack, ids, chunk_idx, counts, org, d, rng, any_hit):
 # the walk: CUDA kernels
 # ---------------------------------------------------------------------------
 
-def _check_rays(org, d, rng, nb, dev):
-    rp = nb * RAY_BLOCK
-    cuda_build.check(org, 'org', torch.float32, (rp, 3), dev)
-    cuda_build.check(d, 'dir', torch.float32, (rp, 3), dev)
-    cuda_build.check(rng, 'rng', torch.float32, (rp, 2), dev)
-
-
 def split_count(num_blocks, num_chunks):
-    """S, the chunk ranges per ray block of the staged walk: about
-    SPLIT_CTAS CTAs at any ray count, at most MAX_RANGE chunks a range."""
+    """S, the chunk ranges per ray block of the walk kernel (every form,
+    the sweep's too): about SPLIT_CTAS CTAs at any ray count, at most
+    MAX_RANGE chunks a range."""
     s = max(-(-SPLIT_CTAS // max(num_blocks, 1)),
             -(-num_chunks // MAX_RANGE))
     return max(1, min(s, num_chunks))
 
 
-def walk_staged(pack, ids, chunk_lo, chunk_hi, org, d, rng, any_hit,
-                splits=None, chunk_mask=None):
-    """The staged walk over padded, sorted rays: the chunk lists are built
-    from the AABBs chunk_lo / chunk_hi [K, 3]. CPU tensors run the plain
-    version (_block_chunk_lists + walk_reference); CUDA tensors launch the
-    kernel (or raise) with `splits` chunk ranges per block (default
-    split_count). chunk_mask is a test hook that no render path passes: a
-    uint8 [blocks, K] tensor that receives each block's chunk hit set, to
-    be held against _block_chunk_lists."""
-    if not org.is_cuda:
-        chunk_idx, counts = _block_chunk_lists(org, d, rng[:, 0], rng[:, 1],
-                                               chunk_lo, chunk_hi)
-        return walk_reference(pack, ids, chunk_idx, counts, org, d, rng,
-                              any_hit)
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def launch(entry, tri_chunk, pack, ids, chunk_lo, chunk_hi, org, d, rng,
+           any_hit, splits=None, chunk_mask=None):
+    """Launch the C entry point `entry` (one form of the walk kernel of
+    csrc/walk.cuh, over chunks of tri_chunk triangles) on padded, sorted
+    rays on the card, with `splits` chunk ranges per block (default
+    split_count). Returns what walk_reference returns; raises on inputs
+    the kernel does not take and on a failed launch. chunk_mask is a test
+    hook that no render path passes: a uint8 [blocks, K] tensor that
+    receives each block's chunk hit set."""
     dev = org.device
     nb = org.shape[0] // RAY_BLOCK
     K = pack.shape[0]
     rp = nb * RAY_BLOCK
     check = cuda_build.check
-    check(pack, 'pack', torch.float32, (K, PACK_ROWS, TRI_CHUNK), dev)
-    check(ids, 'ids', torch.int32, (K, TRI_CHUNK), dev)
+    check(pack, 'pack', torch.float32, (K, PACK_ROWS, tri_chunk), dev)
+    check(ids, 'ids', torch.int32, (K, tri_chunk), dev)
     check(chunk_lo, 'chunk_lo', torch.float32, (K, 3), dev)
     check(chunk_hi, 'chunk_hi', torch.float32, (K, 3), dev)
-    _check_rays(org, d, rng, nb, dev)
+    check(org, 'org', torch.float32, (rp, 3), dev)
+    check(d, 'dir', torch.float32, (rp, 3), dev)
+    check(rng, 'rng', torch.float32, (rp, 2), dev)
     if pack.data_ptr() % 16 or ids.data_ptr() % 16:
-        raise ValueError('pack and ids must be 16-byte aligned (cp.async)')
+        raise ValueError('pack and ids must be 16-byte aligned (float4 '
+                         'reads, cp.async)')
     if chunk_mask is not None:
         check(chunk_mask, 'chunk_mask', torch.uint8, (nb, K), dev)
     splits = split_count(nb, K) if splits is None else splits
-    lib = cuda_build.load_library()
-    stream = cuda_build.stream_of(dev)
-    args = [x.data_ptr() for x in (pack, ids, chunk_lo, chunk_hi, org, d,
-                                   rng)] + [nb, K, splits]
-    mask_ptr = None if chunk_mask is None else chunk_mask.data_ptr()
     if any_hit:
-        occ = torch.zeros(rp, dtype=torch.bool, device=dev)
-        err = lib.chunkwalk_staged_any(*args, occ.data_ptr(), mask_ptr,
-                                       stream)
-        variant, out = 'split_any_hit', occ
+        out = torch.zeros(rp, dtype=torch.bool, device=dev)
+        part = res = (None,) * 4
+        occ = out
     else:
-        out = (torch.empty(rp, dtype=torch.float32, device=dev),
-               torch.empty(rp, dtype=torch.int32, device=dev),
-               torch.empty(rp, dtype=torch.float32, device=dev),
-               torch.empty(rp, dtype=torch.float32, device=dev))
+        out = res = (torch.empty(rp, dtype=torch.float32, device=dev),
+                     torch.empty(rp, dtype=torch.int32, device=dev),
+                     torch.empty(rp, dtype=torch.float32, device=dev),
+                     torch.empty(rp, dtype=torch.float32, device=dev))
         # the ranges' partials; the kernel writes `out` itself when S = 1
         part = [torch.empty((splits if splits > 1 else 0, rp), dtype=x.dtype,
                             device=dev) for x in out]
-        err = lib.chunkwalk_staged_closest(
-            *args, *(x.data_ptr() for x in part),
-            *(x.data_ptr() for x in out), mask_ptr, stream)
-        variant = 'split_closest_hit'
-    cuda_build.raise_on_error(err, f'chunk-walk {variant}')
-    launch_counts[variant] += 1
+        occ = None
+    err = getattr(cuda_build.load_library(), entry)(
+        *map(_ptr, (pack, ids, chunk_lo, chunk_hi, org, d, rng)),
+        nb, K, splits, int(any_hit), *map(_ptr, part), *map(_ptr, res),
+        _ptr(occ), _ptr(chunk_mask), cuda_build.stream_of(dev))
+    cuda_build.raise_on_error(err, f'{entry} (any_hit={any_hit})')
     return out
 
 
-def walk_resident(pack, ids, chunk_idx, counts, org, d, rng, any_hit):
-    """The resident walk over padded, sorted rays and their block lists
-    (prepare_rays). CPU tensors run walk_reference; CUDA tensors launch
-    the kernel (or raise)."""
+def walk_staged(pack, ids, chunk_lo, chunk_hi, org, d, rng, any_hit,
+                splits=None, chunk_mask=None):
+    """The staged walk (K1/K2) over padded, sorted rays: the chunk lists
+    are built from the AABBs chunk_lo / chunk_hi [K, 3]. CPU tensors run
+    the plain version (_block_chunk_lists + walk_reference); CUDA tensors
+    launch the kernel (or raise); `splits` and `chunk_mask` as in
+    launch."""
     if not org.is_cuda:
+        chunk_idx, counts = _block_chunk_lists(org, d, rng[:, 0], rng[:, 1],
+                                               chunk_lo, chunk_hi)
         return walk_reference(pack, ids, chunk_idx, counts, org, d, rng,
                               any_hit)
-    dev = org.device
-    nb = counts.shape[0]
-    K = pack.shape[0]
-    rp = nb * RAY_BLOCK
-    check = cuda_build.check
-    check(pack, 'pack', torch.float32, (K, PACK_ROWS, TRI_CHUNK), dev)
-    check(ids, 'ids', torch.int32, (K, TRI_CHUNK), dev)
-    check(chunk_idx, 'chunk_idx', torch.int32, (nb, K), dev)
-    check(counts, 'counts', torch.int32, (nb,), dev)
-    _check_rays(org, d, rng, nb, dev)
-    lib = cuda_build.load_library()
-    stream = cuda_build.stream_of(dev)
-    args = [x.data_ptr() for x in (pack, ids, chunk_idx, counts, org, d, rng)]
-    if any_hit:
-        occ = torch.empty(rp, dtype=torch.bool, device=dev)
-        err = lib.chunkwalk_resident_any(*args, nb, K, occ.data_ptr(), stream)
-        variant, out = 'any_hit_resident', occ
-    else:
-        t = torch.empty(rp, dtype=torch.float32, device=dev)
-        tid = torch.empty(rp, dtype=torch.int32, device=dev)
-        u = torch.empty(rp, dtype=torch.float32, device=dev)
-        v = torch.empty(rp, dtype=torch.float32, device=dev)
-        err = lib.chunkwalk_resident_closest(*args, nb, K, t.data_ptr(),
-                                             tid.data_ptr(), u.data_ptr(),
-                                             v.data_ptr(), stream)
-        variant, out = 'closest_hit_resident', (t, tid, u, v)
-    cuda_build.raise_on_error(err, f'chunk-walk {variant}')
-    launch_counts[variant] += 1
+    out = launch('chunkwalk_staged', TRI_CHUNK, pack, ids, chunk_lo,
+                 chunk_hi, org, d, rng, any_hit, splits, chunk_mask)
+    launch_counts['split_any_hit' if any_hit else 'split_closest_hit'] += 1
+    return out
+
+
+def walk_resident(pack, ids, chunk_lo, chunk_hi, org, d, rng, any_hit,
+                  splits=None, chunk_mask=None):
+    """The resident walk (K3): walk_staged's function and arguments, with
+    the kernel reading rows from global memory instead of a shared-memory
+    ring."""
+    if not org.is_cuda:
+        return walk_staged(pack, ids, chunk_lo, chunk_hi, org, d, rng,
+                           any_hit)
+    out = launch('chunkwalk_resident', TRI_CHUNK, pack, ids, chunk_lo,
+                 chunk_hi, org, d, rng, any_hit, splits, chunk_mask)
+    launch_counts['any_hit_resident' if any_hit
+                  else 'closest_hit_resident'] += 1
     return out
 
 
@@ -404,15 +389,6 @@ def sort_rays(cw, org, d, min_t, max_t):
     return (org.contiguous(), d.contiguous(), rng.contiguous()), order
 
 
-def prepare_rays(cw, org, d, min_t, max_t):
-    """sort_rays, then the per-block chunk lists of the resident form.
-    Returns the resident walk's inputs and the sort order."""
-    (org, d, rng), order = sort_rays(cw, org, d, min_t, max_t)
-    chunk_idx, counts = _block_chunk_lists(org, d, rng[:, 0], rng[:, 1],
-                                           cw.chunk_lo, cw.chunk_hi)
-    return (chunk_idx, counts, org, d, rng), order
-
-
 def _unsort(x, order, R):
     if order is not None:
         out = torch.empty_like(x)
@@ -435,12 +411,10 @@ def closest_result(t, tid, u, v, order, R):
 def _walk(cw, org, d, min_t, max_t, any_hit, resident):
     """Either form of the walk over the query's rays; returns its padded,
     sorted output and the sort order."""
-    if resident:
-        args, order = prepare_rays(cw, org, d, min_t, max_t)
-        return walk_resident(cw.pack, cw.ids, *args, any_hit=any_hit), order
     (o, dd, rng), order = sort_rays(cw, org, d, min_t, max_t)
-    return walk_staged(cw.pack, cw.ids, cw.chunk_lo, cw.chunk_hi, o, dd, rng,
-                       any_hit=any_hit), order
+    walk = walk_resident if resident else walk_staged
+    return walk(cw.pack, cw.ids, cw.chunk_lo, cw.chunk_hi, o, dd, rng,
+                any_hit=any_hit), order
 
 
 def intersect_chunkwalk(scene, org, d, time, min_t, max_t, resident=False):

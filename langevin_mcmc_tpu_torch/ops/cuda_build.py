@@ -2,7 +2,8 @@
 
 Every source is compiled by its own ``nvcc`` process, all started
 together, into objects that are linked into one shared library under
-``_build/`` (git-ignored), keyed by a hash of every source and the flags.
+``_build/`` (git-ignored), keyed by a hash of every source, every header
+(``csrc/*.cuh``) and the flags.
 The library is built at first use on a machine with the CUDA toolkit and
 bound with ctypes; each C entry point returns ``cudaGetLastError()`` of its
 launch, which the wrappers turn into an exception.
@@ -28,16 +29,12 @@ _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
                '-O3', '--fmad=false', '-Xcompiler', '-fPIC']
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry points: argument types (pointers, then int sizes, then outputs,
-# then the stream)
-SIGNATURES = {
-    'chunkwalk_staged_closest': [_P] * 7 + [_I] * 3 + [_P] * 9 + [_P],
-    'chunkwalk_staged_any': [_P] * 7 + [_I] * 3 + [_P] * 2 + [_P],
-    'chunkwalk_resident_closest': [_P] * 7 + [_I] * 2 + [_P] * 4 + [_P],
-    'chunkwalk_resident_any': [_P] * 7 + [_I] * 2 + [_P] + [_P],
-    'sweep_closest': [_P] * 6 + [_I] * 2 + [_P] * 4 + [_P],
-    'sweep_any': [_P] * 6 + [_I] * 2 + [_P] + [_P],
-}
+# the C entry points, one per form of the walk kernel (csrc/walk.cuh
+# launch_walk): tables and rays, (blocks, chunks, splits, any_hit), the
+# closest hit's partials and outputs, occluded, chunk_mask, the stream
+_WALK = [_P] * 7 + [_I] * 4 + [_P] * 10 + [_P]
+SIGNATURES = {'chunkwalk_staged': _WALK, 'chunkwalk_resident': _WALK,
+              'sweep_walk': _WALK}
 
 # set by the first build in this process: seconds, cached, library path
 build_info = {}
@@ -50,7 +47,7 @@ def _nvcc():
     return cand if os.path.exists(cand) else shutil.which('nvcc')
 
 
-def _compile(nvcc, sources, out):
+def _compile(nvcc, sources, out, extra_flags=()):
     """One nvcc per source, all at once, then one link into `out`."""
     work = tempfile.mkdtemp(dir=_BUILD)
     try:
@@ -59,7 +56,7 @@ def _compile(nvcc, sources, out):
             obj = os.path.join(work, os.path.basename(src) + '.o')
             objs.append(obj)
             procs.append((src, subprocess.Popen(
-                [nvcc, *_NVCC_FLAGS, '-c', '-o', obj, src])))
+                [nvcc, *_NVCC_FLAGS, *extra_flags, '-c', '-o', obj, src])))
         failed = [src for src, p in procs if p.wait() != 0]
         if failed:
             raise RuntimeError(f'nvcc failed on {failed}')
@@ -72,13 +69,15 @@ def _compile(nvcc, sources, out):
 
 
 def load_library():
-    """Build csrc/*.cu (once per source hash) and bind the entry points."""
+    """Build csrc/*.cu (once per hash of the sources and headers) and bind
+    the entry points."""
     global _lib
     if _lib is not None:
         return _lib
     sources = sorted(glob.glob(os.path.join(_CSRC, '*.cu')))
+    headers = sorted(glob.glob(os.path.join(_CSRC, '*.cuh')))
     digest = hashlib.sha256(' '.join(_NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + headers:
         with open(src, 'rb') as f:
             digest.update(os.path.basename(src).encode() + f.read())
     out = os.path.join(_BUILD, f'liblmcmc_{digest.hexdigest()[:16]}.so')

@@ -5,22 +5,22 @@ the JAX package's ``LMCMC_ISECT_BACKEND=pallas`` backend).
    512-triangle chunks, packed as the chunk walk packs them ([K, 16, 512]
    f32 rows: Woop inverse frame 0-8, translation 9-11, valid 12) with int32
    ids beside them, plus per-chunk AABBs.
-2. Torch stage: pad to 256-ray blocks, sort rays by (origin Morton cell,
-   direction octant) and slab-test every (ray, chunk) AABB pair into a
-   per-(block, chunk) visit mask (``_chunk_mask``).
-3. The sweep (``walk``): the CUDA kernel ``csrc/sweep.cu`` for CUDA
-   tensors — closest hit or any hit — and ``sweep_reference``, its plain
-   torch version with the same contract, for CPU tensors. Each block
-   visits its unmasked chunks in ascending order; within a chunk the
-   smallest t wins (ties to the smallest id), across chunks a later chunk
-   must be strictly closer.
+2. Torch stage (``prepare_rays``): pad to 256-ray blocks and sort rays by
+   (origin Morton cell, direction octant).
+3. The sweep (``walk``): for CUDA tensors the kernel ``csrc/sweep.cu``,
+   closest hit or any hit, which slab-tests every (ray, chunk) AABB pair
+   into its per-(block, chunk) visit mask itself and splits each block's
+   chunks into ranges walked by separate CTAs; for CPU tensors its plain
+   torch version with the same contract, ``_chunk_mask`` +
+   ``sweep_reference``. Each block visits its unmasked chunks in ascending
+   order; within a chunk the smallest t wins (ties to the smallest id),
+   across chunks a later chunk must be strictly closer.
 """
 
 import torch
 
-from . import cuda_build
-from .chunkwalk import (BIG, PACK_ROWS, RAY_BLOCK, _sort_rays, _tile,
-                        _unsort, chunk_winner, closest_result, pad_rays)
+from .chunkwalk import (BIG, RAY_BLOCK, _sort_rays, _tile, _unsort,
+                        chunk_winner, closest_result, launch, pad_rays)
 from .chunkwalk import prep_tables as _prep_chunks
 
 TRI_CHUNK = 512
@@ -96,44 +96,26 @@ def sweep_reference(pack, ids, mask, org, d, rng, any_hit):
             best_v.reshape(-1))
 
 
-def walk(pack, ids, mask, org, d, rng, any_hit):
-    """The sweep over padded, sorted rays. CPU tensors run sweep_reference;
-    CUDA tensors launch the kernel (or raise)."""
+def walk(pack, ids, chunk_lo, chunk_hi, org, d, rng, any_hit, splits=None,
+         chunk_mask=None):
+    """The sweep over padded, sorted rays, its visit mask built from the
+    AABBs chunk_lo / chunk_hi [K, 3]. CPU tensors run the plain version
+    (_chunk_mask + sweep_reference); CUDA tensors launch the kernel (or
+    raise), with `splits` chunk ranges per block (default
+    chunkwalk.split_count) and the test hook `chunk_mask` of
+    chunkwalk.launch."""
     if not org.is_cuda:
+        mask = _chunk_mask(org, d, rng[:, 0], rng[:, 1], chunk_lo, chunk_hi)
         return sweep_reference(pack, ids, mask, org, d, rng, any_hit)
-    dev = org.device
-    nb, K = mask.shape
-    rp = nb * RAY_BLOCK
-    check = cuda_build.check
-    check(pack, 'pack', torch.float32, (K, PACK_ROWS, TRI_CHUNK), dev)
-    check(ids, 'ids', torch.int32, (K, TRI_CHUNK), dev)
-    check(mask, 'mask', torch.int32, (nb, K), dev)
-    check(org, 'org', torch.float32, (rp, 3), dev)
-    check(d, 'dir', torch.float32, (rp, 3), dev)
-    check(rng, 'rng', torch.float32, (rp, 2), dev)
-    lib = cuda_build.load_library()
-    stream = cuda_build.stream_of(dev)
-    args = [x.data_ptr() for x in (pack, ids, mask, org, d, rng)]
-    if any_hit:
-        occ = torch.empty(rp, dtype=torch.bool, device=dev)
-        err = lib.sweep_any(*args, nb, K, occ.data_ptr(), stream)
-        variant, out = 'any_hit', occ
-    else:
-        t = torch.empty(rp, dtype=torch.float32, device=dev)
-        tid = torch.empty(rp, dtype=torch.int32, device=dev)
-        u = torch.empty(rp, dtype=torch.float32, device=dev)
-        v = torch.empty(rp, dtype=torch.float32, device=dev)
-        err = lib.sweep_closest(*args, nb, K, t.data_ptr(), tid.data_ptr(),
-                                u.data_ptr(), v.data_ptr(), stream)
-        variant, out = 'closest_hit', (t, tid, u, v)
-    cuda_build.raise_on_error(err, f'sweep {variant}')
-    launch_counts[variant] += 1
+    out = launch('sweep_walk', TRI_CHUNK, pack, ids, chunk_lo, chunk_hi, org,
+                 d, rng, any_hit, splits, chunk_mask)
+    launch_counts['any_hit' if any_hit else 'closest_hit'] += 1
     return out
 
 
 def prepare_rays(tables, org, d, min_t, max_t):
-    """Pad (chunkwalk.pad_rays), sort (no dead-last key, as in the JAX
-    sweep) and build the visit mask. Returns the sweep's inputs and the
+    """Pad (chunkwalk.pad_rays) and sort (no dead-last key, as in the JAX
+    sweep). Returns the sweep's rays (org, d, rng = [min_t, max_t]) and the
     sort order (None for a single block)."""
     org, d, min_t, max_t = pad_rays(org, d, min_t, max_t)
     order = None
@@ -141,23 +123,25 @@ def prepare_rays(tables, org, d, min_t, max_t):
         order = _sort_rays(tables.scene_lo, tables.scene_hi, org, d)
         org, d = org[order], d[order]
         min_t, max_t = min_t[order], max_t[order]
-    mask = _chunk_mask(org, d, min_t, max_t, tables.chunk_lo,
-                       tables.chunk_hi)
     rng = torch.stack([min_t, max_t], -1)
-    return (mask, org.contiguous(), d.contiguous(), rng.contiguous()), order
+    return (org.contiguous(), d.contiguous(), rng.contiguous()), order
+
+
+def _sweep(sw, org, d, min_t, max_t, any_hit):
+    """The sweep over the query's rays; returns its padded, sorted output
+    and the sort order."""
+    (o, dd, rng), order = prepare_rays(sw, org, d, min_t, max_t)
+    return walk(sw.pack, sw.ids, sw.chunk_lo, sw.chunk_hi, o, dd, rng,
+                any_hit), order
 
 
 def intersect_sweep(scene, org, d, time, min_t, max_t):
     """Closest hit. Returns (hit, tri_id, t, u, v)."""
-    sw = scene.sweep
-    (mask, o, dd, rng), order = prepare_rays(sw, org, d, min_t, max_t)
-    out = walk(sw.pack, sw.ids, mask, o, dd, rng, any_hit=False)
+    out, order = _sweep(scene.sweep, org, d, min_t, max_t, False)
     return closest_result(*out, order, org.shape[0])
 
 
 def occluded_sweep(scene, org, d, time, min_t, max_t):
     """Any hit. Returns occluded [R] bool."""
-    sw = scene.sweep
-    (mask, o, dd, rng), order = prepare_rays(sw, org, d, min_t, max_t)
-    occ = walk(sw.pack, sw.ids, mask, o, dd, rng, any_hit=True)
+    occ, order = _sweep(scene.sweep, org, d, min_t, max_t, True)
     return _unsort(occ, order, org.shape[0])

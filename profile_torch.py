@@ -12,7 +12,7 @@ step up, then:
      (mod.fn(...), or fn(...) inside mod), not names bound elsewhere at
      import time (from mod import fn). The chunk walk's stages: sort_rays
      (torch: pad, sort) and walk_staged (the kernel, which builds its own
-     chunk lists); prepare_rays / walk_resident are the resident form's;
+     chunk lists); walk_resident is the resident form's;
   2. profiles 3 further steps with torch.profiler and prints the CUDA
      kernels by total device time, and their sum over the step time measured
      without syncs or profiler (the device-busy share).
@@ -80,8 +80,8 @@ def main():
                   (replay, 'path_grad'), (replay, 'bake_frozen'),
                   (trace, 'generate_path_bidir'), (cache, 'query_knn'),
                   (cache, 'push_batch'), (chunkwalk, 'sort_rays'),
-                  (chunkwalk, 'walk_staged'), (chunkwalk, 'prepare_rays'),
-                  (chunkwalk, 'walk_resident'), (mlt, 'splat')]
+                  (chunkwalk, 'walk_staged'), (chunkwalk, 'walk_resident'),
+                  (mlt, 'splat')]
         saved = []
         for mod, name in stages:
             fn = getattr(mod, name)

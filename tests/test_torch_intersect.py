@@ -129,8 +129,9 @@ def test_ray_sort_and_block_lists_match_jax(scenes, rays):
     equal the JAX stages exactly."""
     js, ts = scenes
     org, d, mn, mx = (torch.as_tensor(x) for x in rays)
-    (chunk_idx, counts, o, dd, rng), order = cw.prepare_rays(ts.cw, org, d,
-                                                            mn, mx)
+    (o, dd, rng), order = cw.sort_rays(ts.cw, org, d, mn, mx)
+    chunk_idx, counts = cw._block_chunk_lists(o, dd, rng[:, 0], rng[:, 1],
+                                              ts.cw.chunk_lo, ts.cw.chunk_hi)
     Rp = o.shape[0]
     pad = Rp - N_RAYS
     jo = jnp.pad(jnp.asarray(rays[0]), ((0, pad), (0, 0)))

@@ -1,18 +1,20 @@
 """The kernels' wrappers and the port's device defaults (no JAX in this
 file, so it also runs on a machine with a card and no JAX):
 
-* on CPU tensors the chunk-walk wrappers run the plain version and count
-  no launch; the plain version's any hit equals the closest hit's hit set;
-* on a card (marked `cuda`, skipped elsewhere): the staged chunk walk
-  (K1/K2), its resident form (K3) and the culled sweep (K4), both variants
-  of each, equal their plain versions exactly (the kernels are built with
-  --fmad=false), each launch is counted under its own name, and bad inputs
-  raise. The staged walk builds its chunk lists itself and splits each
-  ray block's chunks into ranges: it is held against _block_chunk_lists +
-  walk_reference with 1, the default and K ranges, on planted exact ties,
-  on rays all occluded within the first chunk (an exit with copies in
-  flight), and with all-dead blocks and a ray count that is not a multiple
-  of 256;
+* on CPU tensors the walk wrappers run the plain version and count no
+  launch; the plain version's any hit equals the closest hit's hit set;
+* on a card (marked `cuda`, skipped elsewhere): the three forms of the walk
+  kernel (csrc/walk.cuh), the staged chunk walk (K1/K2), the resident
+  chunk walk (K3) and the culled sweep (K4), both variants of each, equal
+  their plain versions exactly (the kernels are built with --fmad=false),
+  each launch is counted under its own name, and bad inputs raise. Each
+  builds its chunk lists (the sweep: its visit mask) itself and splits
+  each ray block's chunks into ranges: it is held against
+  _block_chunk_lists + walk_reference (the sweep: _chunk_mask +
+  sweep_reference), and its hit sets against the lists or the mask, with
+  1, 2, the default and K ranges, on planted exact ties, on rays all
+  occluded within the first tile (an early exit), with all-dead blocks
+  and a ray count that is not a multiple of 256;
 * the entry points default to the card: without one, parse_scene and the
   CLI refuse unless the CPU is asked for.
 """
@@ -54,27 +56,73 @@ def _rays(scene, n, device):
     return [x.to(device) for x in (a, d, mn, mx)]
 
 
-def _inputs(scene, rays):
-    (chunk_idx, counts, o, dd, rng), _ = cw.prepare_rays(scene.cw, *rays)
-    return (scene.cw.pack, scene.cw.ids, chunk_idx, counts, o, dd, rng)
+FORMS = ['staged', 'resident', 'sweep']
+# launch-count keys of each form: (closest hit, any hit)
+KEYS = {'staged': ('split_closest_hit', 'split_any_hit'),
+        'resident': ('closest_hit_resident', 'any_hit_resident'),
+        'sweep': ('closest_hit', 'any_hit')}
+
+
+def _walk(form):
+    return {'staged': cw.walk_staged, 'resident': cw.walk_resident,
+            'sweep': sw.walk}[form]
+
+
+def _tables(sc, form):
+    """The form's table set (scene.cw or scene.sweep) of scene sc."""
+    return sc.sweep if form == 'sweep' else sc.cw
+
+
+def _sorted(sc, form, rays):
+    """Rays padded and sorted as the form's query sorts them."""
+    if form == 'sweep':
+        return sw.prepare_rays(sc.sweep, *rays)[0]
+    return cw.sort_rays(sc.cw, *rays)[0]
+
+
+def _launches():
+    return {**cw.launch_counts, **{'sweep_' + k: v
+                                   for k, v in sw.launch_counts.items()}}
+
+
+def _reset():
+    cw.reset_launch_counts()
+    sw.reset_launch_counts()
+
+
+def _plain(form, pack, ids, lo, hi, o, d, rng, any_hit):
+    """The form's plain version on the same tensors, and the chunk hit sets
+    it walks ([blocks, K] uint8)."""
+    if form == 'sweep':
+        mask = sw._chunk_mask(o, d, rng[:, 0], rng[:, 1], lo, hi)
+        return (sw.sweep_reference(pack, ids, mask, o, d, rng, any_hit),
+                mask.to(torch.uint8))
+    chunk_idx, counts = cw._block_chunk_lists(o, d, rng[:, 0], rng[:, 1],
+                                              lo, hi)
+    sets = torch.zeros((counts.shape[0], pack.shape[0]), dtype=torch.uint8,
+                       device=o.device)
+    for b in range(counts.shape[0]):
+        sets[b, chunk_idx[b, :counts[b]].long()] = 1
+    return (cw.walk_reference(pack, ids, chunk_idx, counts, o, d, rng,
+                              any_hit), sets)
 
 
 def test_cpu_runs_plain_version_without_launches(scene):
-    cw.reset_launch_counts()
-    args = _inputs(scene, _rays(scene, 700, 'cpu'))
-    pack, ids, _, _, o, dd, rng = args
-    t, tid, u, v = cw.walk_staged(pack, ids, scene.cw.chunk_lo,
-                                  scene.cw.chunk_hi, o, dd, rng, False)
-    occ = cw.walk_staged(pack, ids, scene.cw.chunk_lo, scene.cw.chunk_hi, o,
-                         dd, rng, True)
-    assert torch.equal(cw.walk_resident(*args, any_hit=True), occ)
-    assert not any(cw.launch_counts.values())
-    rt, rid, ru, rv = cw.walk_reference(*args, any_hit=False)
-    assert torch.equal(t, rt) and torch.equal(tid, rid)
-    hit = t < cw.BIG
-    assert torch.equal(occ, hit)
-    assert hit.any() and (~hit).any()
-    assert (tid[hit] >= 0).all() and (tid[~hit] == -1).all()
+    _reset()
+    rays = _rays(scene, 700, 'cpu')
+    for form in FORMS:
+        tabs = _tables(scene, form)
+        args = (tabs.pack, tabs.ids, tabs.chunk_lo, tabs.chunk_hi,
+                *_sorted(scene, form, rays))
+        t, tid, u, v = _walk(form)(*args, False)
+        occ = _walk(form)(*args, True)
+        (rt, rid, ru, rv), _ = _plain(form, *args, False)
+        assert torch.equal(t, rt) and torch.equal(tid, rid)
+        hit = t < cw.BIG
+        assert torch.equal(occ, hit)
+        assert hit.any() and (~hit).any()
+        assert (tid[hit] >= 0).all() and (tid[~hit] == -1).all()
+    assert not any(_launches().values())
 
 
 def _on_card(scene):
@@ -84,33 +132,32 @@ def _on_card(scene):
                                device=torch.device('cuda'))
 
 
-def _staged_equals_plain(sc, tables, rays, splits=None):
-    """The staged kernel on rays sorted and padded for scene sc, walking
-    tables (pack, ids, chunk_lo, chunk_hi), against _block_chunk_lists +
-    walk_reference, bit for bit; its chunk hit sets against the lists.
-    Returns the plain closest hit and the list lengths."""
+def _kernel_equals_plain(form, sc, tables, rays, splits=None):
+    """The form's kernel on rays sorted and padded for scene sc, walking
+    tables (pack, ids, chunk_lo, chunk_hi), against its plain version, bit
+    for bit; its chunk hit sets against the plain version's lists or mask;
+    one closest-hit and three any-hit launches, counted under the form's
+    keys. Returns the plain closest hit and the hit sets."""
     pack, ids, lo, hi = tables
-    (o, d, rng), _ = cw.sort_rays(sc.cw, *rays)
-    chunk_idx, counts = cw._block_chunk_lists(o, d, rng[:, 0], rng[:, 1],
-                                              lo, hi)
-    mask = torch.zeros((counts.shape[0], pack.shape[0]), dtype=torch.uint8,
-                       device=o.device)
-    got = cw.walk_staged(pack, ids, lo, hi, o, d, rng, False, splits=splits,
-                         chunk_mask=mask)
-    want = cw.walk_reference(pack, ids, chunk_idx, counts, o, d, rng, False)
+    o, d, rng = _sorted(sc, form, rays)
+    args = (pack, ids, lo, hi, o, d, rng)
+    want, sets = _plain(form, *args, False)
+    mask = torch.zeros_like(sets)
+    _reset()
+    got = _walk(form)(*args, False, splits=splits, chunk_mask=mask)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    for _ in range(3):  # repeated: an exit must leave no copy in flight
-        assert torch.equal(
-            cw.walk_staged(pack, ids, lo, hi, o, d, rng, True,
-                           splits=splits),
-            cw.walk_reference(pack, ids, chunk_idx, counts, o, d, rng, True))
+    occ, _ = _plain(form, *args, True)
+    for _ in range(3):  # repeated: an early exit must leave no copy behind
+        assert torch.equal(_walk(form)(*args, True, splits=splits), occ)
     torch.cuda.synchronize()
-    hit_sets = torch.zeros_like(mask)
-    for b in range(counts.shape[0]):
-        hit_sets[b, chunk_idx[b, :counts[b]].long()] = 1
-    assert torch.equal(mask, hit_sets)
-    return want, counts
+    assert torch.equal(mask, sets)
+    closest, any_hit = KEYS[form]
+    prefix = 'sweep_' if form == 'sweep' else ''
+    want_counts = {k: 0 for k in _launches()}
+    want_counts.update({prefix + closest: 1, prefix + any_hit: 3})
+    assert _launches() == want_counts
+    return want, sets
 
 
 @pytest.mark.cuda
@@ -118,12 +165,8 @@ def test_kernel_matches_plain_on_card(scene):
     sc = _on_card(scene)
     tables = (sc.cw.pack, sc.cw.ids, sc.cw.chunk_lo, sc.cw.chunk_hi)
     rays = _rays(sc, 4096, 'cuda')
-    cw.reset_launch_counts()
-    want, counts = _staged_equals_plain(sc, tables, rays)
-    assert cw.launch_counts == {'split_closest_hit': 1, 'split_any_hit': 3,
-                                'closest_hit_resident': 0,
-                                'any_hit_resident': 0}
-    assert (want[0] < cw.BIG).any() and int(counts[-1]) == 0
+    want, sets = _kernel_equals_plain('staged', sc, tables, rays)
+    assert (want[0] < cw.BIG).any() and not sets[-1].any()
     (o, d, rng), _ = cw.sort_rays(sc.cw, *rays)
     with pytest.raises(ValueError):
         cw.walk_staged(tables[0].double(), *tables[1:], o, d, rng, False)
@@ -134,70 +177,83 @@ def test_kernel_matches_plain_on_card(scene):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('form', FORMS)
 @pytest.mark.parametrize('splits', ['one', 'two', 'all'])
-def test_staged_kernel_splits_on_card(scene, splits):
+def test_kernel_splits_on_card(scene, form, splits):
     """1, 2 and K chunk ranges per block; 1,000 rays (not a multiple of
-    256) of which 300 dead, so the last block is all dead."""
+    256) of which a quarter dead (the chunk walk sorts them last, so its
+    last block is all dead)."""
     sc = _on_card(scene)
-    tables = (sc.cw.pack, sc.cw.ids, sc.cw.chunk_lo, sc.cw.chunk_hi)
-    S = {'one': 1, 'two': 2, 'all': sc.cw.pack.shape[0]}[splits]
-    want, counts = _staged_equals_plain(sc, tables, _rays(sc, 1000, 'cuda'),
-                                        splits=S)
-    assert int(counts[-1]) == 0
+    tabs = _tables(sc, form)
+    tables = (tabs.pack, tabs.ids, tabs.chunk_lo, tabs.chunk_hi)
+    S = {'one': 1, 'two': 2, 'all': tabs.pack.shape[0]}[splits]
+    want, sets = _kernel_equals_plain(form, sc, tables,
+                                      _rays(sc, 1000, 'cuda'), splits=S)
+    assert (want[0] < cw.BIG).any()
+    if form != 'sweep':
+        assert not sets[-1].any()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('form', FORMS)
 @pytest.mark.parametrize('splits', ['one', 'two', 'all'])
-def test_staged_kernel_planted_ties_on_card(scene, splits):
-    """The same triangle in chunk 0 under ids X and -2 and in the last
+def test_kernel_planted_ties_on_card(scene, form, splits):
+    """The same triangle in chunk 0 under ids X and -2 (in another
+    128-triangle tile for the sweep's 512-triangle chunks) and in the last
     chunk under -3: the closest hit is -2 (smaller id within a chunk,
     earlier chunk across chunks, also when the two chunks lie in different
-    ranges). Every live ray is occluded within chunk 0, the first of its
-    list, so the any-hit ranges leave with copies of later chunks in
-    flight."""
+    ranges). Every live ray is occluded within the first tile of chunk 0,
+    the first of its list, so the any-hit ranges leave early, with later
+    tiles of their lists unread."""
     sc = _on_card(scene)
-    *tables, rays = planted_tie_case(scene)
+    *tables, rays = planted_tie_case(scene, _tables(scene, form))
     tables = [x.cuda() for x in tables]
     rays = [x.cuda() for x in rays]
-    S = {'one': 1, 'two': 2, 'all': sc.cw.pack.shape[0]}[splits]
-    (t, tid, _, _), counts = _staged_equals_plain(sc, tables, rays, splits=S)
+    S = {'one': 1, 'two': 2, 'all': tables[0].shape[0]}[splits]
+    (t, tid, _, _), sets = _kernel_equals_plain(form, sc, tables, rays,
+                                                splits=S)
     hit = t < cw.BIG
     assert (tid[hit] == -2).float().mean() > 0.9
-    assert int(counts.max()) > 3 and int(counts[-1]) == 0
+    assert int(sets.sum(1).max()) >= 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('form', FORMS)
+def test_kernel_all_dead_on_card(scene, form):
+    """Every ray dead: nothing is hit; the any hit leaves every range at its
+    first tile (the sweep's mask, which has no alive term, still visits the
+    chunks around the rays' origins)."""
+    sc = _on_card(scene)
+    tabs = _tables(sc, form)
+    tables = (tabs.pack, tabs.ids, tabs.chunk_lo, tabs.chunk_hi)
+    org, d, mn, _ = _rays(sc, 1000, 'cuda')
+    want, sets = _kernel_equals_plain(form, sc, tables,
+                                      (org, d, mn, torch.zeros_like(mn)))
+    assert not (want[0] < cw.BIG).any()
+    assert sets.any() == (form == 'sweep')
 
 
 @pytest.mark.cuda
 def test_resident_kernel_matches_plain_on_card(scene):
     sc = _on_card(scene)
-    args = _inputs(sc, _rays(sc, 4096, 'cuda'))
-    cw.reset_launch_counts()
-    got = cw.walk_resident(*args, any_hit=False)
-    want = cw.walk_reference(*args, any_hit=False)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    assert torch.equal(cw.walk_resident(*args, any_hit=True),
-                       cw.walk_reference(*args, any_hit=True))
-    assert cw.launch_counts == {'split_closest_hit': 0, 'split_any_hit': 0,
-                                'closest_hit_resident': 1,
-                                'any_hit_resident': 1}
+    tables = (sc.cw.pack, sc.cw.ids, sc.cw.chunk_lo, sc.cw.chunk_hi)
+    want, _ = _kernel_equals_plain('resident', sc, tables,
+                                   _rays(sc, 4096, 'cuda'))
+    assert (want[0] < cw.BIG).any()
 
 
 @pytest.mark.cuda
 def test_sweep_kernel_matches_plain_on_card(scene):
     sc = _on_card(scene)
-    (mask, o, d, rng), _ = sw.prepare_rays(sc.sweep,
-                                           *_rays(sc, 4096, 'cuda'))
-    args = (sc.sweep.pack, sc.sweep.ids, mask, o, d, rng)
-    sw.reset_launch_counts()
-    got = sw.walk(*args, any_hit=False)
-    want = sw.sweep_reference(*args, any_hit=False)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    assert torch.equal(sw.walk(*args, any_hit=True),
-                       sw.sweep_reference(*args, any_hit=True))
-    assert sw.launch_counts == {'closest_hit': 1, 'any_hit': 1}
-    with pytest.raises(ValueError):
-        sw.walk(*args[:2], mask.long(), *args[3:], any_hit=False)
+    tables = (sc.sweep.pack, sc.sweep.ids, sc.sweep.chunk_lo,
+              sc.sweep.chunk_hi)
+    rays = _rays(sc, 4096, 'cuda')
+    want, _ = _kernel_equals_plain('sweep', sc, tables, rays)
+    assert (want[0] < cw.BIG).any()
+    o, d, rng = _sorted(sc, 'sweep', rays)
+    with pytest.raises(ValueError):  # the chunk walk's tables
+        sw.walk(sc.cw.pack, sc.cw.ids, sc.cw.chunk_lo, sc.cw.chunk_hi, o, d,
+                rng, False)
 
 
 def test_entry_points_default_to_the_card(tmp_path):

@@ -102,7 +102,9 @@ def test_tables_match_jax(scenes):
 
 def test_ray_sort_and_mask_match_jax(scenes, rays):
     js, ts = scenes
-    (mask, o, _, _), order = sw.prepare_rays(ts.sweep, *_torch(rays))
+    (o, d, rng), order = sw.prepare_rays(ts.sweep, *_torch(rays))
+    mask = sw._chunk_mask(o, d, rng[:, 0], rng[:, 1], ts.sweep.chunk_lo,
+                          ts.sweep.chunk_hi)
     pad = o.shape[0] - N_RAYS
     jo = jnp.pad(jnp.asarray(rays[0]), ((0, pad), (0, 0)))
     jd = jnp.pad(jnp.asarray(rays[1]), ((0, pad), (0, 0)),

@@ -1,5 +1,6 @@
-"""The staged chunk walk's split form (kernels K1/K2 in csrc/chunkwalk.cu)
-on the CPU, as plain torch mirrors of the rules the kernel follows:
+"""The chunk walk's split form (kernels K1/K2 and K3: the Staged and
+Resident forms of csrc/walk.cuh, in csrc/chunkwalk.cu) on the CPU, as
+plain torch mirrors of the rules the kernels follow:
 
 * split and merge: each ray block's chunk ids are cut into S contiguous
   ranges [s K / S, (s + 1) K / S); each range is walked on its own, and
@@ -10,10 +11,12 @@ on the CPU, as plain torch mirrors of the rules the kernel follows:
   against the range's AABBs, OR over the rays, compacted in ascending
   order; the ranges' lists, concatenated, equal _block_chunk_lists,
   padded and dead rays included;
-* the staged walk on CPU tensors is the plain version, and
-  intersect_chunkwalk (both forms) still agrees with JAX
-  intersect_bruteforce as tests/test_torch_intersect.py requires.
-The kernel itself is held against the plain version on the card by
+* both forms on CPU tensors are the plain version; intersect_chunkwalk
+  (both forms) still agrees with JAX intersect_bruteforce as
+  tests/test_torch_intersect.py requires, and the resident form with the
+  JAX package's resident kernel (_walk_kernel_resident, in interpret
+  mode).
+The kernels themselves are held against the plain version on the card by
 tests/test_torch_kernel.py and chip_smoke.py.
 """
 
@@ -23,6 +26,7 @@ import torch
 import jax.numpy as jnp
 
 from langevin_mcmc_tpu.scene.parse import parse_scene as jax_parse
+from langevin_mcmc_tpu.ops import chunkwalk as jax_cw
 from langevin_mcmc_tpu.ops import intersect as jax_isect
 from langevin_mcmc_tpu_torch import testscenes
 from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
@@ -168,16 +172,18 @@ def test_range_lists_match_block_chunk_lists(case, which):
     assert not (rng[-cw.RAY_BLOCK:, 1] >= rng[-cw.RAY_BLOCK:, 0]).any()
 
 
-def test_staged_walk_on_cpu_is_the_plain_version(case):
+@pytest.mark.parametrize('form', ['staged', 'resident'])
+def test_staged_walk_on_cpu_is_the_plain_version(case, form):
     _, (pack, ids, lo, hi, o, d, rng) = case
+    walk = {'staged': cw.walk_staged, 'resident': cw.walk_resident}[form]
     cw.reset_launch_counts()
     chunk_idx, counts = cw._block_chunk_lists(o, d, rng[:, 0], rng[:, 1],
                                               lo, hi)
-    got = cw.walk_staged(pack, ids, lo, hi, o, d, rng, False)
+    got = walk(pack, ids, lo, hi, o, d, rng, False)
     want = cw.walk_reference(pack, ids, chunk_idx, counts, o, d, rng, False)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert torch.equal(cw.walk_staged(pack, ids, lo, hi, o, d, rng, True),
+    assert torch.equal(walk(pack, ids, lo, hi, o, d, rng, True),
                        cw.walk_reference(pack, ids, chunk_idx, counts, o, d,
                                          rng, True))
     assert not any(cw.launch_counts.values())
@@ -212,3 +218,44 @@ def test_intersect_chunkwalk_matches_jax_bruteforce(scenes, resident):
     np.testing.assert_allclose(ttp[sel], ttb[sel], rtol=2e-4, atol=2e-4)
     np.testing.assert_array_equal(occ, hb)
     assert hb.any() and not hp[to_np(mx) == 0].any()
+
+
+def test_resident_walk_matches_jax_resident_kernel(scenes, monkeypatch):
+    """The resident form's CPU path against the JAX walk with the pack held
+    resident (_walk_kernel_resident in interpret mode): equal hit sets,
+    triangle ids and occlusion, t / u / v within the atol of
+    tests/test_torch_intersect.py (XLA contracts and reorders the Woop
+    projection's f32 products, torch rounds op by op)."""
+    js, ts = scenes
+    rng = np.random.default_rng(29)
+    tp = to_np(ts.tri_p[0]).astype(np.float64)
+    n = 600
+    p = tp[rng.integers(0, tp.shape[0], n)]
+    b = rng.uniform(0, 1, (n, 2))
+    b = np.where(b.sum(1, keepdims=True) > 1, 1 - b, b)
+    org = p[:, 0] * (1 - b.sum(1))[:, None] + p[:, 1] * b[:, :1] \
+        + p[:, 2] * b[:, 1:]
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    mx = np.where(rng.uniform(size=n) < 0.3, 0.0, np.inf)
+    rays = [x.astype(np.float32) for x in (org, d, np.zeros(n),
+                                           np.full(n, 1e-2), mx)]
+    monkeypatch.setattr(jax_cw, 'VMEM_RESIDENT_BYTES', 6 * 1024 * 1024)
+    jargs = [jnp.asarray(x) for x in rays]
+    hj, tj, ttj, uj, vj = (np.asarray(x) for x in
+                           jax_cw.intersect_chunkwalk(js, *jargs))
+    occ_j = np.asarray(jax_cw.occluded_chunkwalk(js, *jargs))
+    targs = [torch.as_tensor(x) for x in rays]
+    cw.reset_launch_counts()
+    with torch.no_grad():
+        hp, tp_, ttp, up, vp = (to_np(x) for x in cw.intersect_chunkwalk(
+            ts, *targs, resident=True))
+        occ = to_np(cw.occluded_chunkwalk(ts, *targs, resident=True))
+    assert not any(cw.launch_counts.values())
+    np.testing.assert_array_equal(hp, hj)
+    np.testing.assert_array_equal(tp_[hp], tj[hj])
+    np.testing.assert_allclose(ttp[hp], ttj[hj], rtol=1e-4, atol=5e-4)
+    np.testing.assert_allclose(up[hp], uj[hj], atol=2e-3)
+    np.testing.assert_allclose(vp[hp], vj[hj], atol=2e-3)
+    np.testing.assert_array_equal(occ, occ_j)
+    assert hp.any() and not hp[mx == 0].any()

@@ -68,24 +68,32 @@ def assert_close_most(got, want, rtol, frac=0.01, atol=1e-9, err_msg=''):
         f'{err_msg}: {near_miss}/{n} lanes in (rtol, 10x rtol], rtol={rtol}')
 
 
-def planted_tie_case(scene, n_alive=700, n_dead=300, seed=11):
-    """Chunk-walk tables of `scene` (CPU) with exact ties planted, and rays
-    that hit them.
+def planted_tie_case(scene, tables=None, n_alive=700, n_dead=300, seed=11):
+    """Chunk tables of `scene` (CPU: the chunk walk's scene.cw, the default,
+    or the sweep's scene.sweep) with exact ties planted, and rays that hit
+    them.
 
-    A triangle of chunk 0 is copied, rows and AABB, into another column of
-    chunk 0 under the id -2 and into column 0 of the last chunk under the
-    id -3, both smaller than its own id. So its closest hit must be the
-    chunk-0 copy with id -2: within a chunk a tie of t goes to the smaller
-    id, across chunks the earlier chunk wins. n_alive rays run along the
-    triangle's normal, from 0.01 away on either side, onto points inside
-    it: each is occluded within chunk 0, the first chunk of its block's
-    list. n_dead more rays are dead; the total is not a multiple of 256.
+    The first valid triangle of chunk 0, which lies in the chunk's first
+    128-triangle tile, is copied, rows and AABB, into another column of
+    chunk 0 under the id -2 (in another 128-triangle tile where the chunk
+    has several, as the sweep's 512-triangle chunks do) and into column 0
+    of the last chunk under the id -3, both smaller than its own id. So its
+    closest hit must be the chunk-0 copy with id -2: within a chunk a tie
+    of t goes to the smaller id, whichever tile holds it; across chunks the
+    earlier chunk wins. n_alive rays run along the triangle's normal, from
+    0.01 away on either side, onto points inside it: each is occluded
+    within the first tile of chunk 0, the first chunk of its block's list.
+    n_dead more rays are dead; the total is not a multiple of 256.
     Returns (pack, ids, chunk_lo, chunk_hi, (org, d, min_t, max_t))."""
-    cw = scene.cw
+    cw = scene.cw if tables is None else tables
     pack, ids = cw.pack.clone(), cw.ids.clone()
     lo, hi = cw.chunk_lo.clone(), cw.chunk_hi.clone()
     last = pack.shape[0] - 1
-    a, b = (int(k) for k in torch.nonzero(pack[0, 12] > 0.5)[:2, 0])
+    valid = torch.nonzero(pack[0, 12] > 0.5)[:, 0]
+    a = int(valid[0])
+    later = valid[valid >= 128]
+    b = int(later[0] if len(later) else valid[1])
+    assert a < 128
     pack[0, :, b] = pack[0, :, a]
     ids[0, b] = -2
     pack[last, :, 0] = pack[0, :, a]
