@@ -24,19 +24,28 @@ Phases (any failure exits non-zero before the last line is printed):
        and again at the large step's; and the sweep's t against the chunk
        walk's on every hit (the ids may differ only on exact ties of t,
        which are counted);
-  4. path generation on the card against the CPU plain path on a small
-     generated scene (same tape);
-  5. path A, the MALA render through the CLI entry point: 1024x768,
+  4. on the generated open scene (the same torus, now a rough dielectric,
+     on a textured floor beside a textured Phong sphere, lit by an env map
+     with a sun, a point light and the quad area light; no walls, so rays
+     miss): K1/K2 on 65,536 rays (kernel_rays' camera and surface rays,
+     plus rays from the x1000 bounding sphere: the env map's emission rays
+     and rays aimed at the scene) against their plain version, with time,
+     plain time, bound and the share of live rays that miss;
+  5. path generation on the card against the CPU plain path on the small
+     generated box and open scenes (same tape);
+  6. path A, the MALA render through the CLI entry point: 1024x768,
      maxdepth 8, 65,536 chains, 300,000 bootstrap samples, directspp 1,
      --spp 1 (12 chain iterations); it runs K1/K2;
-  6. path B, the same configuration with H2MC small steps and
+  7. path B, the same configuration with H2MC small steps and
      LMCMC_ISECT_BACKEND=pallas, so it runs K4; the ratio of the two chain
      loops' proposals/s is the H2MC/MALA cost ratio at the same tuning;
-  7. path C, the MC integrator on the flagship scene (--spp 1) with
-     LMC_CW_VMEM_BYTES=6291456, so it runs K3.
-Each render's film must be finite, non-negative, non-zero and 768x1024x3,
-and each kernel must have been launched by the path that runs it (the
-launch counts are reset just before each path and read just after).
+  8. path C, the MC integrator on the flagship scene (--spp 1) with
+     LMC_CW_VMEM_BYTES=6291456, so it runs K3;
+  9. path D, path A's configuration on the open scene; it runs K1/K2.
+Each render's film must be finite, non-negative, non-zero and 768x1024x3
+(path D's top rows, the sky, lit too), and each kernel must have been
+launched by the path that runs it (the launch counts are reset just before
+each path and read just after).
 The line before the last two is {"kernels": [...]}: per kernel its
 launches on its path, max |error| against the plain version, its time and
 the plain version's (ms), and its bound: the larger of the f32 operations
@@ -44,7 +53,8 @@ this run's data needs (40 per ray-triangle test, 25 per ray-AABB slab
 test: 256 rays x all chunks per block) over the 67 TFLOP/s f32 peak and
 its bytes (each input read once, each output written once) over 3.35 TB/s
 (H100 SXM data sheet). No PyTorch call
-computes a closest-hit ray query, so library_ms is null.
+computes a closest-hit ray query, so library_ms is null. The open scene's
+K1/K2 rows (names ending in _open) also carry miss_share.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -75,7 +85,7 @@ def log(msg):
 def write_flagship(out_dir, num_init_samples=INIT_SAMPLES, **kw):
     """Write the generated flagship scene (24,576-triangle torus, 1024x768,
     maxdepth 8, 65,536 chains) into out_dir; returns the XML path. kw:
-    write_scene's kernel / integrator."""
+    write_scene's kernel / integrator / scene ('box' or 'open')."""
     sys.path.insert(0, HERE)
     from langevin_mcmc_tpu_torch import testscenes
     return testscenes.write_scene(out_dir, num_init_samples=num_init_samples,
@@ -378,6 +388,82 @@ def check_kernels(scene):
     return rows
 
 
+def far_rays(scene, n, seed):
+    """n rays from the x1000 bounding sphere on the card: half the env
+    map's emission rays, half aimed at random triangles' vertices."""
+    from langevin_mcmc_tpu_torch.ops import lights
+    dev = scene.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = n // 2
+    em = lights.emit(scene,
+                     torch.full((h,), scene.env_light_id, dtype=torch.int32,
+                                device=dev),
+                     torch.zeros(h, dtype=torch.int32, device=dev),
+                     torch.rand((h, 2), generator=g, device=dev),
+                     torch.rand((h, 2), generator=g, device=dev),
+                     torch.zeros(h, device=dev))
+    tri = torch.randint(0, scene.num_tris, (n - h,), generator=g, device=dev)
+    aim = scene.tri_p[0][tri, 0]
+    d = torch.randn((n - h, 3), generator=g, device=dev)
+    d = d / d.norm(dim=1, keepdim=True)
+    org = torch.cat([em['org'], aim - d * scene.bsphere_radius])
+    return (org, torch.cat([em['dir'], d]),
+            torch.full((n,), 1e-4, device=dev),
+            torch.full((n,), float('inf'), device=dev))
+
+
+def open_rows(scene):
+    """K1/K2 on the open scene: 65,536 rays, three quarters as kernel_rays
+    makes them, a quarter from the x1000 bounding sphere (far_rays),
+    against their plain version. Returns the two rows (names ending in
+    _open), keyed by the launch-count name, each with its miss share: the
+    share of live rays the closest hit finds nothing for."""
+    from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
+    n = 65536
+    near = kernel_rays(scene, n - n // 4, seed=17)
+    far = far_rays(scene, n // 4, seed=18)
+    org, d, mn, mx = (torch.cat([a, b]) for a, b in zip(near, far))
+    (o, dd, rng), _ = cw.sort_rays(scene.cw, org, d, mn, mx)
+    tabs = (scene.cw.pack, scene.cw.ids, scene.cw.chunk_lo, scene.cw.chunk_hi)
+    chunk_idx, counts = cw._block_chunk_lists(o, dd, rng[:, 0], rng[:, 1],
+                                              scene.cw.chunk_lo,
+                                              scene.cw.chunk_hi)
+    t = cw.walk_reference(scene.cw.pack, scene.cw.ids, chunk_idx, counts, o,
+                          dd, rng, False)[0]
+    live = rng[:, 1] >= rng[:, 0]
+    miss = float(((t >= cw.BIG) & live).sum() / live.sum())
+    nb, K = counts.shape[0], scene.cw.pack.shape[0]
+    blocks_empty = int((counts == 0).sum())
+    log(f'open scene kernel inputs: {o.shape[0]} rays ({n // 4} from the '
+        f'bounding sphere, radius {scene.bsphere_radius:.6g}), {nb} blocks '
+        f'({blocks_empty} with an empty chunk list), {K} chunks of '
+        f'{cw.TRI_CHUNK} (mean list length {counts.float().mean().item():.2f}'
+        f'); miss share of live rays {miss:.4f}')
+    tests_c = int(counts.sum()) * cw.RAY_BLOCK * cw.TRI_CHUNK
+    tests_a = int(blocks_until_occluded(scene.cw.pack, chunk_idx, counts, o,
+                                        dd, rng).sum()) \
+        * cw.RAY_BLOCK * cw.TRI_CHUNK
+    rows = {}
+    for a, key, rep in ((False, 'split_closest_hit',
+                         'langevin_mcmc_tpu/ops/chunkwalk.py:157'),
+                        (True, 'split_any_hit',
+                         'langevin_mcmc_tpu/ops/chunkwalk.py:180')):
+        name = ('chunkwalk_split_any_hit_open' if a
+                else 'chunkwalk_split_closest_hit_open')
+        rows[key] = kernel_row(
+            name, 'langevin_mcmc_tpu_torch/csrc/chunkwalk.cu', rep,
+            lambda: cw.walk_staged(*tabs, o, dd, rng, a),
+            lambda: cw.walk_reference(
+                scene.cw.pack, scene.cw.ids,
+                *cw._block_chunk_lists(o, dd, rng[:, 0], rng[:, 1],
+                                       scene.cw.chunk_lo, scene.cw.chunk_hi),
+                o, dd, rng, a), a,
+            tests_a if a else tests_c, nbytes(*tabs, o, dd, rng), n,
+            slab_tests=nb * cw.RAY_BLOCK * K)
+        rows[key]['miss_share'] = miss
+    return rows
+
+
 def check_generation(small_xml):
     """Bidirectional generation on the card (kernel) against the CPU (plain
     version) from the same tape: contributions agree lane by lane, up to
@@ -401,17 +487,19 @@ def check_generation(small_xml):
         raise AssertionError('non-finite contributions on the card')
     rel = (np.abs(a - b) / np.maximum(np.abs(b), 1e-9)).max(1)
     bad = int((rel > 1e-3).sum())
-    log(f'generation card vs CPU: {a.shape[0]} lanes, {bad} beyond rtol '
-        f'1e-3 (max rel {rel.max():.3g}), mean ls {a.mean():.6g} vs '
+    name = os.path.basename(os.path.dirname(small_xml))
+    log(f'generation card vs CPU ({name}): {a.shape[0]} lanes, {bad} beyond '
+        f'rtol 1e-3 (max rel {rel.max():.3g}), mean ls {a.mean():.6g} vs '
         f'{b.mean():.6g}')
     if bad > a.shape[0] // 100:
         raise AssertionError(f'{bad} lanes of card generation diverge from '
                              f'the CPU plain path')
 
 
-def render(label, xml, env):
-    """One render through the CLI with env set around it. Checks the film;
-    returns (CLI result, launch counts of this render by row key)."""
+def render(label, xml, env, sky=False):
+    """One render through the CLI with env set around it. Checks the film
+    (sky: its top rows must be lit too); returns (CLI result, launch counts
+    of this render by row key)."""
     from langevin_mcmc_tpu_torch.__main__ import main as cli_main
     from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
     from langevin_mcmc_tpu_torch.ops import sweep_isect as sw
@@ -447,6 +535,11 @@ def render(label, xml, env):
         raise AssertionError(f'{label}: negative film values')
     if not film.mean() > 0.0:
         raise AssertionError(f'{label}: film is zero')
+    if sky:
+        top = float(film[:32].mean())
+        log(f'{label}: sky (mean of the top 32 rows) {top:.6g}')
+        if not top > 0.0:
+            raise AssertionError(f'{label}: the sky is dark')
     return res, launches
 
 
@@ -488,8 +581,12 @@ def main():
                               kernel='h2mc')
     xml_mc = write_flagship(os.path.join(OUT, 'flagship_mc'),
                             integrator='mc')
+    xml_open = write_flagship(os.path.join(OUT, 'open'), scene='open')
     small_xml = testscenes.write_scene(os.path.join(OUT, 'small'), small=True,
                                        width=64, height=48, max_depth=4)
+    small_open = testscenes.write_scene(os.path.join(OUT, 'small_open'),
+                                        small=True, width=64, height=48,
+                                        max_depth=4, scene='open')
     scene, opts, _ = parse_scene(xml, device='cuda')
     log(f'flagship scene: {scene.num_tris} triangles, '
         f'{scene.cw.pack.shape[0]} chunks of 128 '
@@ -498,8 +595,16 @@ def main():
         f'{opts.num_init_samples} bootstrap samples, '
         f'{scene.width}x{scene.height}')
     rows = check_kernels(scene)
-    check_generation(small_xml)
     del scene
+    scene, _, _ = parse_scene(xml_open, device='cuda')
+    log(f'open scene: {scene.num_tris} triangles, {scene.cw.pack.shape[0]} '
+        f'chunks of 128, {scene.num_lights} lights (env map '
+        f'{tuple(scene.env_image.shape)}), {scene.textures.count} textures '
+        f'({scene.textures.neigh.shape[0]} texels)')
+    open_kernel_rows = open_rows(scene)
+    del scene
+    check_generation(small_xml)
+    check_generation(small_open)
 
     res_a, launch_a = render('path A (MALA)', xml, {})
     rate_a = chain_rate('path A (MALA)', res_a)
@@ -510,6 +615,16 @@ def main():
         f'card): {rate_a / rate_b:.3f}')
     _, launch_c = render('path C (MC)', xml_mc,
                          {'LMC_CW_VMEM_BYTES': str(RESIDENT_BYTES)})
+    res_d, launch_d = render('path D (MALA, open scene)', xml_open, {},
+                             sky=True)
+    rate_d = chain_rate('path D (MALA, open scene)', res_d)
+    log(f'path D / path A chain-loop proposals/s (same call): '
+        f'{rate_d:.1f} / {rate_a:.1f} = {rate_d / rate_a:.3f}')
+    for key, row in open_kernel_rows.items():
+        row['launches'] = launch_d[key]
+        if launch_d[key] <= 0:
+            raise AssertionError(f'{row["name"]} was never launched by '
+                                 f'path D')
     for key, launches in (('split_closest_hit', launch_a),
                           ('split_any_hit', launch_a),
                           ('sweep_closest_hit', launch_b),
@@ -521,7 +636,8 @@ def main():
             raise AssertionError(f'{rows[key]["name"]} was never launched by '
                                  f'the path that runs it')
     log(f'total {time.time() - t_start:.1f} s')
-    print(json.dumps({'kernels': list(rows.values())}))
+    print(json.dumps({'kernels': list(rows.values())
+                      + list(open_kernel_rows.values())}))
     print(f'nvidia-smi: {card}')
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .scene.scenedata import HOST_FIELDS, build_scene
+from .scene.textures import _flatten_neigh
 from .path.records import PathRecord, Contribs
 from .mcmc.chain import ChainState
 from .mcmc.gaussian import Gaussian
@@ -23,13 +24,32 @@ CAMERA_FIELDS = ('sample_to_cam', 'cam_to_sample', 'c2w_trans', 'c2w_quat',
                  'width', 'height')
 
 
+TEXTURE_FIELDS = ('neigh', 'size', 'gamma', 'uvscale', 'offset')
+
+
+def textures_from_numpy(d):
+    """The port's texture host arrays from the JAX TexturePack fields
+    (TEXTURE_FIELDS; offset None means the JAX padded layout
+    [N, Hmax, Wmax, 12], which is flattened here)."""
+    size = np.asarray(d['size'], np.int32)
+    if d['offset'] is None:
+        neigh, offset = _flatten_neigh(np.asarray(d['neigh']), size)
+    else:
+        neigh = np.asarray(d['neigh'])
+        offset = np.asarray(d['offset'], np.int32)
+    return dict(neigh=neigh, offset=offset, size=size,
+                gamma=np.asarray(d['gamma']), uvscale=np.asarray(d['uvscale']))
+
+
 def scene_from_numpy(d, device='cpu'):
     """SceneData from a dict of numpy arrays holding the JAX SceneData
-    fields (HOST_FIELDS, num_lights, and 'camera': a dict of
-    CAMERA_FIELDS)."""
+    fields (HOST_FIELDS, num_lights, env_light_id, 'camera': a dict of
+    CAMERA_FIELDS, and 'textures': a dict of TEXTURE_FIELDS)."""
     host = {k: np.asarray(d[k]) for k in HOST_FIELDS}
     host['num_lights'] = int(d['num_lights'])
+    host['env_light_id'] = int(d['env_light_id'])
     host['camera'] = {k: np.asarray(d['camera'][k]) for k in CAMERA_FIELDS}
+    host['textures'] = textures_from_numpy(d['textures'])
     return build_scene(host, device)
 
 

@@ -37,7 +37,8 @@ INF = float('inf')
 def _replay_nee(scene, rec, c_idx, state, time, frozen, occluded_fn, opts,
                 mask=None, occ_in=None, pack=None):
     """Next-event estimation at the terminal camera vertex with the
-    record's light instance. Returns (contrib, ls, ss, mis, valid)."""
+    record's light instance; in frozen mode an env light's pixel stays the
+    recorded one. Returns (contrib, ls, ss, mis, valid)."""
     C = rec.time.shape[0]
     lanes = torch.arange(C, device=rec.time.device)
     light_id = torch.clamp(rec.cam_nee_light[lanes, c_idx], min=0)
@@ -46,10 +47,30 @@ def _replay_nee(scene, rec, c_idx, state, time, frozen, occluded_fn, opts,
     light_pick_prob = pack['pick_prob'] if pack is not None \
         else light_ops.pick_light_prob(scene, light_id)
     out = light_ops.sample_direct(scene, light_id, lprim, nee_rnd,
-                                  state.pos, time, pack=pack)
+                                  state.pos, time, pack=pack,
+                                  skip_env=frozen)
     valid = out['valid']
     if frozen:
         occ_ok = torch.ones_like(valid)
+        if scene.env_light_id >= 0:
+            ltype = pack['ltype'] if pack is not None \
+                else scene.light_type[light_id.long()]
+            is_env = ltype == light_ops.LIGHT_ENV
+            env_pack = pack['env'] if pack is not None \
+                else light_ops.bake_env_pixel(scene, lprim)
+            d_w, value, pdf = light_ops.frozen_env_sample_direction(
+                scene, env_pack, nee_rnd, time)
+            out = dict(out)
+            out['dir_to_light'] = _where(is_env, d_w, out['dir_to_light'])
+            out['contrib'] = _where(is_env,
+                                    value / vm.clamp_abs(pdf)[..., None],
+                                    out['contrib'])
+            out['direct_pdf'] = torch.where(is_env, pdf, out['direct_pdf'])
+            out['emission_pdf'] = torch.where(
+                is_env, pdf * scene.env_position_pdf, out['emission_pdf'])
+            out['dist'] = torch.where(is_env, torch.full_like(pdf, INF),
+                                      out['dist'])
+            valid = valid | is_env
     elif occ_in is not None:
         occ_ok = ~occ_in
     else:
@@ -75,6 +96,33 @@ def _replay_nee(scene, rec, c_idx, state, time, frozen, occluded_fn, opts,
     return contrib, score, score * state.ss_jacobian, mis_w, valid
 
 
+def _replay_emit(scene, rec, time, frozen, pack=None):
+    """Light::Emit with the record's light instance; in frozen mode an env
+    light's pixel stays the recorded one (rec.lgt_lprim), so only the
+    offsets within it differentiate."""
+    lid = torch.clamp(rec.lgt_light_id, min=0)
+    out = light_ops.emit(scene, lid, rec.lgt_lprim, rec.lgt_rnd_pos,
+                         rec.lgt_rnd_dir, time, pack=pack, skip_env=frozen)
+    if not (frozen and scene.env_light_id >= 0):
+        return out
+    env_pack = pack['env'] if pack is not None \
+        else light_ops.bake_env_pixel(scene, rec.lgt_lprim)
+    d_s, em_e, dpdf_e = light_ops.frozen_env_sample_direction(
+        scene, env_pack, rec.lgt_rnd_dir, time)
+    org_e, d_e = light_ops.env_emit_ray(scene, d_s, rec.lgt_rnd_pos)
+    ltype = pack['ltype'] if pack is not None \
+        else scene.light_type[lid.long()]
+    is_env = ltype == light_ops.LIGHT_ENV
+    out = dict(out)
+    out['org'] = _where(is_env, org_e, out['org'])
+    out['dir'] = _where(is_env, d_e, out['dir'])
+    out['emission'] = _where(is_env, em_e, out['emission'])
+    out['emission_pdf'] = torch.where(is_env, dpdf_e * scene.env_position_pdf,
+                                      out['emission_pdf'])
+    out['direct_pdf'] = torch.where(is_env, dpdf_e, out['direct_pdf'])
+    return out
+
+
 def _zero_state(scene, C, dev):
     """Placeholder last-light-state for lanes without a light subpath.
     Geometrically non-degenerate (unit normals, off-origin position): its
@@ -87,7 +135,8 @@ def _zero_state(scene, C, dev):
         pos=scene.bsphere_center + up, shading_n=up, geom_n=up,
         st=torch.zeros((C, 2), device=dev), wi=up,
         mat=bsdf_ops.gather_mat_params(
-            scene, torch.zeros(C, dtype=torch.long, device=dev)),
+            scene, torch.zeros(C, dtype=torch.long, device=dev),
+            torch.zeros((C, 2), device=dev)),
         tri=torch.zeros(C, dtype=torch.int32, device=dev), acc_prev=z,
         acc_this=z, throughput=torch.zeros((C, 3), device=dev),
         ss_jacobian=z)
@@ -149,8 +198,10 @@ def replay_path(scene, opts, rec, offset, noise, mode='perturb', bake=None,
     eps = torch.full((C,), vm.ISECT_EPS, device=dev)
     inf = torch.full((C,), INF, device=dev)
 
-    def mat_at(tri):
-        return bsdf_ops.gather_mat_params(scene, scene.tri_mat[tri])
+    def mat_at(tri, st):
+        # frozen: texture values are constants of the offset
+        return bsdf_ops.gather_mat_params(scene, scene.tri_mat[tri],
+                                          st.detach() if frozen else st)
 
     # ---------------- light subpath ----------------
     has_lgt = t >= 2
@@ -163,8 +214,7 @@ def replay_path(scene, opts, rec, offset, noise, mode='perturb', bake=None,
         light_pick_prob = light_ops.pick_light_prob(scene, lid)
         delta_light = light_ops.is_delta(scene, lid)
         finite_light = light_ops.is_finite(scene, lid)
-    em = light_ops.emit(scene, lid, rec.lgt_lprim, rec.lgt_rnd_pos,
-                        rec.lgt_rnd_dir, time, pack=emit_pack)
+    em = _replay_emit(scene, rec, time, frozen, pack=emit_pack)
     emission_pdf = em['emission_pdf'] * light_pick_prob
     direct_pdf = em['direct_pdf'] * light_pick_prob
     lthroughput = em['emission'] / torch.clamp(light_pick_prob,
@@ -215,7 +265,9 @@ def replay_path(scene, opts, rec, offset, noise, mode='perturb', bake=None,
                                                      lorg, ld)
             pos, sn, gn, st, _ = frozen_from_row(row_dict_from_raw(c_raw),
                                                  org, d)
-            l_hit = hit = ones_b
+            l_hit = ones_b
+            # a recorded env hit ends the camera subpath off every triangle
+            hit = ~(is_last & (t == 0) & (rec.env_lprim >= 0))
             new_lgt_tri.append(lv_tri)
             new_cam_tri.append(cv_tri)
         else:
@@ -241,7 +293,7 @@ def replay_path(scene, opts, rec, offset, noise, mode='perturb', bake=None,
         # --- light-side step ---
         lgt_ok = lgt_ok & torch.where(l_active, l_hit, ones_b)
         l_mat = tree_map(lambda x: x[:, l], bake['lgt_mat']) if use_bake \
-            else mat_at(l_tri)
+            else mat_at(l_tri, lst)
         l_state = tr.SurfState(pos=lpos, shading_n=lsn, geom_n=lgn, st=lst,
                                wi=-ld, mat=l_mat, tri=l_tri,
                                acc_prev=lacc_prev, acc_this=lacc_this,
@@ -270,7 +322,7 @@ def replay_path(scene, opts, rec, offset, noise, mode='perturb', bake=None,
 
         # --- camera-side step ---
         mat = tree_map(lambda x: x[:, c], bake['cam_mat']) if use_bake \
-            else mat_at(tri)
+            else mat_at(tri, st)
         state = tr.SurfState(pos=pos, shading_n=sn, geom_n=gn, st=st, wi=-d,
                              mat=mat, tri=tri, acc_prev=acc_prev,
                              acc_this=acc_this, throughput=throughput,
@@ -309,6 +361,12 @@ def replay_path(scene, opts, rec, offset, noise, mode='perturb', bake=None,
 
     # ---------------- terminals, evaluated once ----------------
     term_hit = term_hit & has_cam
+    has_env = scene.env_light_id >= 0
+    # frozen mode keeps the record's env hit; perturb mode finds its own
+    if frozen:
+        env_case = has_cam & (t == 0) & (rec.env_lprim >= 0)
+    else:
+        env_case = has_cam & (t == 0) & ~term_hit & has_env
     hit_light_id = torch.where(
         term_hit, scene.tri_light[torch.clamp(term_state.tri, min=0).long()],
         torch.full_like(s, -1))
@@ -319,6 +377,8 @@ def replay_path(scene, opts, rec, offset, noise, mode='perturb', bake=None,
         hit_pack = dict(emission=scene.light_emission[hl],
                         inv_area=scene.light_inv_area[hl],
                         pick_prob=light_ops.pick_light_prob(scene, hl))
+        if has_env:
+            hit_pack['env'] = light_ops.bake_env_dir(scene, term_d, time)
     else:
         hit_pack = None
 
@@ -362,11 +422,12 @@ def replay_path(scene, opts, rec, offset, noise, mode='perturb', bake=None,
     out = dict(contrib=torch.zeros((C, 3), device=dev), ls=zf, ss=zf,
                mis=zf, valid=torch.zeros(C, dtype=torch.bool, device=dev))
 
-    # terminal t == 0: the camera subpath hits a light
-    is_hit_light = has_cam & (t == 0) & term_hit & (hit_light_id >= 0)
+    # terminal t == 0: the camera subpath hits a light or the env map
+    is_hit_light = has_cam & (t == 0) & (
+        (term_hit & (hit_light_id >= 0)) | env_case)
     h_contrib, h_ls, h_ss, h_mis, h_ok = tr.handle_hit_light(
-        scene, s == 2, term_hit, hit_light_id, term_d, term_state,
-        pack=hit_pack)
+        scene, s == 2, term_hit & ~env_case, hit_light_id, term_d, time,
+        term_state, pack=hit_pack)
     out = _acc_out(out, is_hit_light & cam_ok & lgt_ok & h_ok,
                    h_contrib, h_ls, h_ss, h_mis)
 

@@ -6,8 +6,10 @@ pre-drawn uniform tape, so the same function serves bootstrap sampling,
 plain MC rendering and MCMC large steps. MIS bookkeeping follows the
 recursive accMISWPrev / accMISWThis scheme of the JAX package.
 
-Only the ported configuration is handled: area lights (no environment
-light), no light-coordinate sampling, bidirectional MIS.
+Point, area and environment lights, every BSDF of the scene package;
+no light-coordinate sampling. A camera ray that escapes hits the env map
+(when the scene has one); an env light's emission rays start on the disc
+of the x1000 bounding sphere.
 """
 
 import dataclasses
@@ -205,20 +207,31 @@ def bsdf_sampling(scene, opts, state, bsdf_rnd, bsdf_disc, depth, adjoint,
 # ---------------------------------------------------------------------------
 
 def handle_hit_light(scene, first_vertex, hit_surface, hit_light_id, ray_dir,
-                     state, pack=None):
-    """Emission where the camera subpath hits an area light, with bidir MIS
-    (weight 1 for a directly visible light). Rays that escape carry no
-    emission (no environment light). pack: dict(emission, inv_area,
-    pick_prob) of gathered constants.
+                     time, state, pack=None):
+    """Emission where the camera subpath hits an area light or escapes to
+    the env map, with bidir MIS (weight 1 for a directly visible light).
+    pack: dict(emission, inv_area, pick_prob[, env: bake_env_dir pack]) of
+    gathered constants.
     Returns (contrib, ls, ss, mis_w, valid)."""
     lid = torch.clamp(hit_light_id, min=0)
     em, direct_pdf, emission_pdf = light_ops.area_emission(
         scene, lid, ray_dir, state.shading_n, pack=pack)
-    em = torch.where(hit_surface[..., None], em, torch.zeros_like(em))
-    valid = torch.sum(em, -1) > 0.0
-    contrib = state.throughput * em
     pick = pack['pick_prob'] if pack is not None \
         else light_ops.pick_light_prob(scene, lid)
+    if scene.env_light_id >= 0:
+        is_env = ~hit_surface
+        _, em_e, dpdf_e, epdf_e = light_ops.env_emission(
+            scene, ray_dir, time, pack=None if pack is None else pack['env'])
+        em = torch.where(is_env[..., None], em_e, em)
+        direct_pdf = torch.where(is_env, dpdf_e, direct_pdf)
+        emission_pdf = torch.where(is_env, epdf_e, emission_pdf)
+        env_pick = light_ops.pick_light_prob(
+            scene, torch.full_like(lid, scene.env_light_id))
+        pick = torch.where(is_env, env_pick, pick)
+    else:
+        em = torch.where(hit_surface[..., None], em, torch.zeros_like(em))
+    valid = torch.sum(em, -1) > 0.0
+    contrib = state.throughput * em
     direct_pdf = direct_pdf * pick
     emission_pdf = emission_pdf * pick
     w_camera = (MIS(direct_pdf) * state.acc_prev
@@ -508,6 +521,8 @@ def generate_path_bidir(scene, opts, tape: Tape, pixel=None, min_depth=None,
     _, cam_center = camera_center_dir(scene.camera, time)
     cam_pdf_w0 = camera_pdf_w(scene, cam_center, d)
     alive = ones_b
+    has_env = scene.env_light_id >= 0
+    env_lprim = torch.full((C,), -1, dtype=torch.int32, device=dev)
     acc_prev = MIS(spc / cam_pdf_w0)
     acc_this = torch.zeros(C, device=dev)
     throughput = torch.ones((C, 3), device=dev)
@@ -527,14 +542,19 @@ def generate_path_bidir(scene, opts, tape: Tape, pixel=None, min_depth=None,
             acc_this=torch.where(hit, state_mis.acc_this, state.acc_this))
 
         hit_light_id = torch.where(hit, light_id, torch.full_like(light_id, -1))
-        hit_light = alive & hit & (hit_light_id >= 0)
+        is_env_hit = ~hit & alive & has_env
+        hit_light = alive & ((hit & (hit_light_id >= 0)) | is_env_hit)
         exists = alive & hit
 
         # hit light -> slot (2+c, 0); terminates the path
         h_contrib, h_ls, h_ss, h_mis, h_ok = handle_hit_light(
             scene, torch.full((C,), c == 0, device=dev), hit, hit_light_id, d,
-            state)
+            time, state)
         h_ok = h_ok & hit_light & (c + 1 >= md)
+        if has_env:
+            # the env pixel of the path's env hit, frozen for the replay
+            env_pix = light_ops.env_emission(scene, d, time)[0]
+            env_lprim = torch.where(is_env_hit & h_ok, env_pix, env_lprim)
         if c + 1 >= md:
             alive = alive & ~hit_light
         cam_alive_now = exists & alive
@@ -594,7 +614,8 @@ def generate_path_bidir(scene, opts, tape: Tape, pixel=None, min_depth=None,
         rec, cam_tri=stackc('tri'), cam_bsdf_rnd=stackc('rnd_canon'),
         cam_bsdf_disc=stackc('disc'), cam_use_abs=stackc('use_abs'),
         cam_rr=stackc('rr_weight'), cam_nee_light=stackc('nee_light'),
-        cam_nee_lprim=stackc('nee_lprim'), cam_nee_rnd=stackc('nee_rnd'))
+        cam_nee_lprim=stackc('nee_lprim'), cam_nee_rnd=stackc('nee_rnd'),
+        env_lprim=env_lprim)
 
     def grid(h, n, v):
         # [C, D, D+2(, k)]: slot 0 hit light, 1 NEE, 2+l connections
@@ -648,6 +669,7 @@ def generate_path_uni(scene, opts, tape: Tape, pixel=None, min_depth=None,
     last_bsdf_pdf = torch.ones(C, device=dev)
     ss_jac = torch.ones(C, device=dev)
     alive = torch.ones(C, dtype=torch.bool, device=dev)
+    has_env = scene.env_light_id >= 0
 
     steps = D if max_depth == -1 else min(D, max_depth)
     for c in range(steps):
@@ -660,7 +682,8 @@ def generate_path_uni(scene, opts, tape: Tape, pixel=None, min_depth=None,
         pos, sn, mat = state.pos, state.shading_n, state.mat
         vdata = tape.cam_vertex(c)
         hit_light_id = torch.where(hit, light_id, torch.full_like(light_id, -1))
-        hit_light = alive & hit & (hit_light_id >= 0)
+        is_env_hit = ~hit & alive & has_env
+        hit_light = alive & ((hit & (hit_light_id >= 0)) | is_env_hit)
         exists = alive & hit
         rec.cam_tri[:, c] = torch.where(exists, tid, torch.full_like(tid, -1))
         rec.cam_bsdf_disc[:, c] = vdata['disc']
@@ -668,19 +691,30 @@ def generate_path_uni(scene, opts, tape: Tape, pixel=None, min_depth=None,
         if c + 1 >= min_depth or min_depth == -1:
             lid = torch.clamp(hit_light_id, min=0)
             em, direct_pdf, _ = light_ops.area_emission(scene, lid, d, sn)
-            em = torch.where(hit[:, None], em, torch.zeros_like(em))
-            h_ok = (torch.sum(em, -1) > 0.0) & hit_light
             # area pdf -> solid angle
             dist_sq = vm.distance_squared(org, pos)
             safe_cos = vm.clamp_abs(-vm.dot(d, sn))
             direct_pdf = direct_pdf * dist_sq / safe_cos
-            contrib = throughput * em
             lpp = light_ops.pick_light_prob(scene, lid)
+            if has_env:
+                env_pix, em_e, dpdf_e, _ = light_ops.env_emission(scene, d,
+                                                                  time)
+                em = torch.where(hit[:, None], em, em_e)
+                direct_pdf = torch.where(hit, direct_pdf, dpdf_e)
+                lpp = torch.where(hit, lpp, light_ops.pick_light_prob(
+                    scene, torch.full_like(lid, scene.env_light_id)))
+            else:
+                em = torch.where(hit[:, None], em, torch.zeros_like(em))
+            h_ok = (torch.sum(em, -1) > 0.0) & hit_light
+            contrib = throughput * em
             mis_w = vm.mis_weight_power2(last_bsdf_pdf, direct_pdf * lpp) \
                 if c > 0 else torch.ones_like(direct_pdf)
             contrib = contrib * mis_w[..., None]
             score = vm.luminance(contrib)
             h_ok = h_ok & (score > 0.0)
+            if has_env:
+                rec.env_lprim = torch.where(is_env_hit & h_ok, env_pix,
+                                            rec.env_lprim)
             con.screen_pos[:, c, 0] = _masked(h_ok, screen)
             con.contrib[:, c, 0] = _masked(h_ok, contrib)
             con.ls_score[:, c, 0] = _masked(h_ok, score)

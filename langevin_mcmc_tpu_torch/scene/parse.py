@@ -1,10 +1,12 @@
 """Mitsuba-0.5-style scene XML parser (port of scene/parse.py).
 
 Supports the ported configuration: perspective sensor + hdrfilm, static
-``obj`` / ``serialized`` shapes, ``diffuse`` / ``phong`` (optionally
-``twosided``) BSDFs with constant reflectances, ``area`` emitters and the
-``<dpt>`` options block. Everything else the JAX parser reads raises
-``NotImplementedError`` naming the feature.
+``obj`` / ``serialized`` shapes, ``diffuse`` / ``phong`` /
+``roughdielectric`` (optionally ``twosided``) BSDFs, ``bitmap`` textures
+(inline or referenced by id), ``point`` / ``envmap`` / ``area`` emitters
+and the ``<dpt>`` options block. Motion (animated shapes, camera or env
+map) and the samplers not ported yet raise ``NotImplementedError`` naming
+the feature.
 """
 
 import os
@@ -16,8 +18,12 @@ import numpy as np
 from . import transforms as T
 from .camera import camera_arrays
 from .mesh import load_obj, load_serialized
-from .scenedata import BSDF_LAMBERTIAN, BSDF_PHONG, LIGHT_AREA, build_scene
+from .scenedata import (BSDF_LAMBERTIAN, BSDF_PHONG, BSDF_ROUGH_DIELECTRIC,
+                        LIGHT_AREA, LIGHT_ENV, LIGHT_POINT, build_scene,
+                        env_host_arrays)
+from .textures import TextureBuilder
 from ..options import Options
+from ..utils import image_io
 
 
 def _parse_vec3(value):
@@ -65,50 +71,103 @@ class _BSDFSpec:
         self.type = BSDF_LAMBERTIAN
         self.twosided = False
         self.kd = np.array([0.5, 0.5, 0.5])
+        self.kd_tex = -1
         self.ks = np.array([0.2, 0.2, 0.2])
+        self.ks_tex = -1
         self.exponent = 30.0
+        self.exponent_tex = -1
         self.ks_weight = 0.0
+        self.eta = 1.5046 / 1.000277
+        self.alpha = 0.1
+        self.alpha_tex = -1
 
 
 def _lum(v):
     return 0.212671 * v[0] + 0.715160 * v[1] + 0.072169 * v[2]
 
 
-def _parse_value(node):
-    if node.tag in ('texture', 'ref'):
-        raise NotImplementedError('bitmap textures are not ported yet')
-    return _parse_vec3(node.get('value'))
+def _parse_map(node, tex_builder, tex_map, scene_dir):
+    """An rgb/float/spectrum/texture/ref child -> (value, tex_id, avg). A
+    bitmap texture gives value (1,1,1), tex_id >= 0 and its gamma-decoded
+    mean as avg (Phong's KsWeight reads it)."""
+    if node.tag == 'texture':
+        tid, avg = _parse_texture(node, tex_builder, scene_dir)
+        return np.ones(3), tid, avg
+    if node.tag == 'ref':
+        tid, avg = tex_map[node.get('id')]
+        return np.ones(3), tid, avg
+    v = _parse_vec3(node.get('value'))
+    return v, -1, v
 
 
-def _parse_bsdf(node, twosided=False):
+def _parse_texture(node, tex_builder, scene_dir):
+    filename = None
+    uvscale = 1.0
+    for child in node:
+        name = child.get('name')
+        if name == 'filename':
+            filename = os.path.join(scene_dir, child.get('value'))
+        elif name == 'uvscale':
+            uvscale = float(child.get('value'))
+    tid = tex_builder.add_bitmap(filename, (uvscale, uvscale))
+    return tid, tex_builder.avg(tid)
+
+
+def _parse_bsdf(node, tex_builder, tex_map, scene_dir, twosided=False):
     btype = node.get('type')
     spec = _BSDFSpec()
     spec.twosided = twosided
+    pm = lambda c: _parse_map(c, tex_builder, tex_map, scene_dir)
     if btype == 'twosided':
         for child in node:
             if child.tag == 'bsdf':
-                return _parse_bsdf(child, True)
+                return _parse_bsdf(child, tex_builder, tex_map, scene_dir,
+                                   True)
         raise ValueError('twosided without nested bsdf')
     if btype == 'diffuse':
         spec.type = BSDF_LAMBERTIAN
         for child in node:
             if child.get('name') == 'reflectance' or child.tag in ('texture',
                                                                    'ref'):
-                spec.kd = _parse_value(child)
+                spec.kd, spec.kd_tex, _ = pm(child)
     elif btype == 'phong':
         spec.type = BSDF_PHONG
+        kd_avg = np.array([0.5, 0.5, 0.5])
+        ks_avg = np.array([0.2, 0.2, 0.2])
         for child in node:
             name = child.get('name')
             if name == 'diffuseReflectance':
-                spec.kd = _parse_value(child)
+                spec.kd, spec.kd_tex, kd_avg = pm(child)
             elif name == 'specularReflectance':
-                spec.ks = _parse_value(child)
+                spec.ks, spec.ks_tex, ks_avg = pm(child)
             elif name == 'exponent':
-                spec.exponent = float(_parse_value(child)[0])
-        s = _lum(spec.kd) + _lum(spec.ks)
-        spec.ks_weight = _lum(spec.ks) / s if s > 0 else 0.0
+                v, spec.exponent_tex, _ = pm(child)
+                spec.exponent = float(v[0])
+        # KsWeight from the average luminances; a texture map contributes
+        # its decoded mean
+        kd_l = _lum(kd_avg) if spec.kd_tex >= 0 else _lum(spec.kd)
+        ks_l = _lum(ks_avg) if spec.ks_tex >= 0 else _lum(spec.ks)
+        s = kd_l + ks_l
+        spec.ks_weight = ks_l / s if s > 0 else 0.0
     elif btype == 'roughdielectric':
-        raise NotImplementedError('roughdielectric BSDF is not ported yet')
+        spec.type = BSDF_ROUGH_DIELECTRIC
+        int_ior, ext_ior = 1.5046, 1.000277
+        spec.kd = np.ones(3)  # Kt
+        spec.ks = np.ones(3)
+        for child in node:
+            name = child.get('name')
+            if name == 'intIOR':
+                int_ior = float(child.get('value'))
+            elif name == 'extIOR':
+                ext_ior = float(child.get('value'))
+            elif name == 'alpha':
+                v, spec.alpha_tex, _ = pm(child)
+                spec.alpha = float(v[0])
+            elif name == 'specularReflectance':
+                spec.ks, spec.ks_tex, _ = pm(child)
+            elif name == 'specularTransmittance':
+                spec.kd, spec.kd_tex, _ = pm(child)
+        spec.eta = int_ior / ext_ior
     else:
         raise ValueError(f'unknown bsdf type {btype}')
     return spec
@@ -177,8 +236,11 @@ def parse_scene_host(filename, film_wh=None):
     options = Options()
     cam = None
     output_name = 'image'
+    tex_builder = TextureBuilder()
+    tex_map = {}
     bsdf_map = {}
     meshes, mesh_mats, mesh_lights, mat_specs, lights = [], [], [], [], []
+    env = None
 
     def add_mat(spec):
         mat_specs.append(spec)
@@ -220,21 +282,51 @@ def parse_scene_host(filename, film_wh=None):
             cam = camera_arrays(to_world, fov, width, height, near_clip,
                                 far_clip)
         elif tag == 'bsdf':
-            bsdf_map[child.get('id')] = add_mat(_parse_bsdf(child))
+            bsdf_map[child.get('id')] = add_mat(
+                _parse_bsdf(child, tex_builder, tex_map, scene_dir))
         elif tag == 'texture':
-            raise NotImplementedError('bitmap textures are not ported yet')
+            tex_map[child.get('id')] = _parse_texture(child, tex_builder,
+                                                      scene_dir)
         elif tag == 'emitter':
             etype = child.get('type')
-            if etype in ('point', 'envmap'):
-                raise NotImplementedError(
-                    f'{etype} emitters are not ported yet')
-            raise ValueError(f'unsupported emitter {etype}')
+            if etype == 'point':
+                pos = np.zeros(3)
+                intensity = np.ones(3)
+                for c in child:
+                    name = c.get('name')
+                    if name == 'position':
+                        pos = np.array([float(c.get('x', 0.0)),
+                                        float(c.get('y', 0.0)),
+                                        float(c.get('z', 0.0))])
+                    elif name == 'intensity':
+                        intensity = _parse_vec3(c.get('value'))
+                lights.append(dict(type=LIGHT_POINT, pos=pos,
+                                   emission=intensity))
+            elif etype == 'envmap':
+                env_file = None
+                to_world = T.AnimatedTransform(np.eye(4))
+                for c in child:
+                    name = c.get('name')
+                    if name == 'filename':
+                        env_file = os.path.join(scene_dir, c.get('value'))
+                    elif name == 'toWorld':
+                        if c.tag == 'animation':
+                            raise NotImplementedError(
+                                'env map motion is not ported yet')
+                        to_world = T.AnimatedTransform(_parse_transform(c))
+                lights.append(dict(type=LIGHT_ENV, pos=np.zeros(3),
+                                   emission=np.zeros(3)))
+                env = dict(image=image_io.read_image(env_file),
+                           to_world=to_world, light_id=len(lights) - 1)
+            else:
+                raise ValueError(f'unsupported emitter {etype}')
         elif tag == 'shape':
             stype = child.get('type')
             mat_id = None
             for c in child:
                 if c.tag == 'bsdf':
-                    mat_id = add_mat(_parse_bsdf(c))
+                    mat_id = add_mat(_parse_bsdf(c, tex_builder, tex_map,
+                                                 scene_dir))
                     break
                 if c.tag == 'ref':
                     mat_id = bsdf_map[c.get('id')]
@@ -273,14 +365,15 @@ def parse_scene_host(filename, film_wh=None):
                     for g in c:
                         if g.get('name') == 'radiance':
                             radiance = _parse_vec3(g.get('value'))
-                    lights.append(dict(emission=radiance, shape=len(meshes)))
+                    lights.append(dict(type=LIGHT_AREA, pos=np.zeros(3),
+                                       emission=radiance, shape=len(meshes)))
                     area_light_id = len(lights) - 1
             meshes.append(mesh)
             mesh_mats.append(mat_id)
             mesh_lights.append(area_light_id)
 
     host = assemble_host(cam, meshes, mesh_mats, mesh_lights, mat_specs,
-                         lights)
+                         lights, env, tex_builder)
     return host, options, output_name
 
 
@@ -292,9 +385,10 @@ def parse_scene(filename, film_wh=None, device='cuda'):
     return build_scene(host, device), options, output_name
 
 
-def assemble_host(cam, meshes, mesh_mats, mesh_lights, mat_specs, lights):
-    """Flatten parsed meshes/materials/lights into the host arrays of the
-    JAX assemble_scene (same dtypes, same values)."""
+def assemble_host(cam, meshes, mesh_mats, mesh_lights, mat_specs, lights,
+                  env, tex_builder):
+    """Flatten parsed meshes/materials/lights/env map into the host arrays
+    of the JAX assemble_scene (same dtypes, same values)."""
     from ..ops.intersect import build_matmul_tables
     f32 = np.float32
     tri_p, tri_n, tri_st, tri_mat, tri_shape, tri_light = [], [], [], [], [], []
@@ -314,9 +408,11 @@ def assemble_host(cam, meshes, mesh_mats, mesh_lights, mat_specs, lights):
     tri_st = np.concatenate(tri_st, axis=0).astype(f32)
 
     L = max(len(lights), 1)
-    amax = max([len(meshes[lt['shape']].indices) for lt in lights] + [1])
+    amax = max([len(meshes[lt['shape']].indices) for lt in lights
+                if lt['type'] == LIGHT_AREA] + [1])
     ltype = np.zeros(L, np.int32)
     lweight = np.zeros(L, f32)
+    lpos = np.zeros((L, 3), f32)
     lemission = np.zeros((L, 3), f32)
     light_tri = np.zeros((L, amax), np.int32)
     light_tri_cdf = np.zeros((L, amax + 1), f32)
@@ -324,9 +420,12 @@ def assemble_host(cam, meshes, mesh_mats, mesh_lights, mat_specs, lights):
     light_ntri = np.zeros(L, np.int32)
     light_inv_area = np.zeros(L, f32)
     for li, lt in enumerate(lights):
-        ltype[li] = LIGHT_AREA
+        ltype[li] = lt['type']
         lweight[li] = 1.0
+        lpos[li] = lt['pos']
         lemission[li] = lt['emission']
+        if lt['type'] != LIGHT_AREA:
+            continue
         mesh = meshes[lt['shape']]
         idx = mesh.indices
         p = mesh.position[0]
@@ -350,28 +449,37 @@ def assemble_host(cam, meshes, mesh_mats, mesh_lights, mat_specs, lights):
     fi = lcdf[-1]
     lcdf = lcdf / fi if fi > 0 else (np.arange(L + 1) / L).astype(f32)
 
+    # bounding sphere, radius inflated x1000
     pmin = tri_p.reshape(-1, 3).min(0)
     pmax = tri_p.reshape(-1, 3).max(0)
     center = 0.5 * (pmin + pmax)
     radius = float(np.linalg.norm(pmax - center)) * 1000.0
     isect_B, isect_C, isect_ok = build_matmul_tables(tri_p[0])
-    neg = lambda: np.full(len(mat_specs), -1, np.int32)
-    return dict(
+    eta = np.array([s.eta for s in mat_specs], f32)
+    spec = lambda k, dt: np.array([getattr(s, k) for s in mat_specs], dt)
+    host = dict(
         tri_p=tri_p, tri_n=tri_n, tri_st=tri_st,
         tri_mat=np.concatenate(tri_mat), tri_shape=np.concatenate(tri_shape),
         tri_light=np.concatenate(tri_light),
-        mat_type=np.array([s.type for s in mat_specs], np.int32),
-        mat_twosided=np.array([s.twosided for s in mat_specs], bool),
+        mat_type=spec('type', np.int32), mat_twosided=spec('twosided', bool),
         mat_kd=np.stack([s.kd for s in mat_specs]).astype(f32),
+        mat_kd_tex=spec('kd_tex', np.int32),
         mat_ks=np.stack([s.ks for s in mat_specs]).astype(f32),
-        mat_exponent=np.array([s.exponent for s in mat_specs], f32),
-        mat_ks_weight=np.array([s.ks_weight for s in mat_specs], f32),
-        mat_kd_tex=neg(), mat_ks_tex=neg(), mat_exponent_tex=neg(),
-        mat_alpha_tex=neg(),
+        mat_ks_tex=spec('ks_tex', np.int32),
+        mat_exponent=spec('exponent', f32),
+        mat_exponent_tex=spec('exponent_tex', np.int32),
+        mat_ks_weight=spec('ks_weight', f32),
+        mat_eta=eta, mat_inv_eta=1.0 / eta, mat_alpha=spec('alpha', f32),
+        mat_alpha_tex=spec('alpha_tex', np.int32),
         light_type=ltype, light_weight=lweight, light_cdf=lcdf,
-        light_emission=lemission, light_tri=light_tri,
+        light_pos=lpos, light_emission=lemission, light_tri=light_tri,
         light_tri_cdf=light_tri_cdf, light_tri_pmf=light_tri_pmf,
         light_ntri=light_ntri, light_inv_area=light_inv_area,
         bsphere_center=center.astype(f32), bsphere_radius=f32(radius),
         isect_B=isect_B, isect_C=isect_C, isect_ok=isect_ok,
-        num_lights=len(lights), camera=cam)
+        num_lights=len(lights),
+        env_light_id=-1 if env is None else env['light_id'],
+        camera=cam, textures=tex_builder.host_arrays())
+    host.update(env_host_arrays(None if env is None else env['image'],
+                                None if env is None else env['to_world']))
+    return host

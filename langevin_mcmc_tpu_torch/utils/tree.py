@@ -39,3 +39,19 @@ def tree_where(pred, a, b):
 def tree_take(obj, idx):
     """Gather lanes idx from every [C, ...] leaf."""
     return tree_map(lambda x: x[idx] if x.ndim >= 1 else x, obj)
+
+
+def select_by_type(tag, branches):
+    """Per-lane select among the branches of a type dispatch: branches is
+    a list of (type, structure) pairs, one for each type some lane may
+    have; each lane takes the structure of its tag's type (the last pair
+    for a tag that matches none)."""
+    out = branches[-1][1]
+    for t, b in reversed(branches[:-1]):
+        m = tag == t
+
+        def sel(x, y, m=m):
+            return torch.where(m.reshape(m.shape + (1,) * (x.ndim - m.ndim)),
+                               x, y)
+        out = tree_map(sel, b, out)
+    return out

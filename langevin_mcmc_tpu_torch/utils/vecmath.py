@@ -11,6 +11,10 @@ PI = 3.14159265358979323846
 INV_PI = 1.0 / PI
 TWO_PI = 2.0 * PI
 INV_TWO_PI = 1.0 / TWO_PI
+FOUR_PI = 4.0 * PI
+INV_FOUR_PI = 1.0 / FOUR_PI
+PI_OVER_TWO = 0.5 * PI
+PI_OVER_FOUR = 0.25 * PI
 
 ISECT_EPS = 5e-4
 SHADOW_EPS = 5e-4
@@ -51,6 +55,14 @@ def modulo(a, b):
     return torch.where(r < 0, r + b, r)
 
 
+def tent(u):
+    """Tent deformation of a uniform in [0,1) to [-1, 1]; sqrt clamped away
+    from 0 for the gradient."""
+    lo = 1.0 - torch.sqrt(torch.clamp(2.0 * u, min=1e-12))
+    hi = torch.sqrt(torch.clamp(2.0 * (u - 0.5), min=1e-12)) - 1.0
+    return torch.where(u < 0.5, lo, hi)
+
+
 def coordinate_system(n):
     """Orthonormal (b0, b1) around unit normal n (Duff et al. frame with
     the n.z == -1 guard)."""
@@ -68,6 +80,14 @@ def coordinate_system(n):
 
 def reflect(wi, n):
     return 2.0 * dot(wi, n)[..., None] * n - wi
+
+
+def refract(wi, n, cos_theta_t, eta, inv_eta):
+    """n * (dot(wi, n) * eta_ + cosThetaT) - wi * eta_ with
+    eta_ = invEta where cosThetaT < 0, else eta."""
+    scale = torch.where(cos_theta_t < 0.0, inv_eta, eta)
+    return (n * (dot(wi, n) * scale + cos_theta_t)[..., None]
+            - wi * scale[..., None])
 
 
 def sample_sphere(coord):
@@ -106,6 +126,23 @@ def sample_cos_hemisphere(u):
     return torch.stack([torch.cos(phi) * tmp, torch.sin(phi) * tmp, z], -1)
 
 
+def sample_concentric_disc(u):
+    """Concentric square-to-disc mapping."""
+    r1 = 2.0 * u[..., 0] - 1.0
+    r2 = 2.0 * u[..., 1] - 1.0
+    r1_sq_gt = torch.square(r1) > torch.square(r2)
+    r = torch.where(r1_sq_gt, r1, r2)
+    one = torch.ones_like(r1)
+    safe_r1 = torch.where(r1 == 0.0, one, r1)
+    safe_r2 = torch.where(r2 == 0.0, one, r2)
+    phi = torch.where(r1_sq_gt, PI_OVER_FOUR * (r2 / safe_r1),
+                      PI_OVER_TWO - (r1 / safe_r2) * PI_OVER_FOUR)
+    zero = (r1 == 0.0) | (r2 == 0.0)
+    r = torch.where(zero, torch.zeros_like(r), r)
+    phi = torch.where(zero, torch.zeros_like(phi), phi)
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], -1)
+
+
 def local_to_world(local_dir, n):
     b0, b1 = coordinate_system(n)
     return (local_dir[..., 0:1] * b0 + local_dir[..., 1:2] * b1
@@ -117,6 +154,11 @@ def xform_point(m, p):
     ph = torch.cat([p, torch.ones_like(p[..., :1])], -1)
     out = torch.einsum('ij,...j->...i', m, ph)
     return out[..., :3] / out[..., 3:4]
+
+
+def xform_vector(m, v):
+    """The 3x3 part of a 4x4 transform applied to vectors [..., 3]."""
+    return torch.einsum('ij,...j->...i', m[:3, :3], v)
 
 
 def mis_weight_power2(pdf_a, pdf_b):
@@ -136,3 +178,13 @@ def clamp_abs(x, eps=1e-12):
     return torch.where(torch.abs(x) < eps,
                        torch.where(x < 0, torch.full_like(x, -eps),
                                    torch.full_like(x, eps)), x)
+
+
+def safe_div(a, b, eps=0.0):
+    """a / b with b == 0 mapped to eps (keeps masked lanes finite)."""
+    q = a / torch.where(b == 0.0, torch.ones_like(b), b)
+    return torch.where(b == 0.0, torch.full_like(q, eps), q)
+
+
+def lerp(t, a, b):
+    return (1.0 - t) * a + t * b

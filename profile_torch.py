@@ -2,9 +2,9 @@
 
     python3 profile_torch.py
 
-Runs the flagship scene of chip_smoke.py (24,576-triangle torus, 1024x768,
-maxdepth 8, 65,536 chains) with a 65,536-sample bootstrap, warms the chain
-step up, then:
+Runs each scene of chip_smoke.py's MALA renders (the flagship box, path A,
+and the open scene, path D: 1024x768, maxdepth 8, 65,536 chains) with a
+65,536-sample bootstrap, warms the chain step up, then:
   1. times each stage of the step inclusively over 3 steps (host clock
      with a device sync around every call of the wrapped functions). A
      stage is wrapped by replacing its module attribute, so the timer sees
@@ -16,7 +16,7 @@ step up, then:
   2. profiles 3 further steps with torch.profiler and prints the CUDA
      kernels by total device time, and their sum over the step time measured
      without syncs or profiler (the device-busy share).
-Prints one JSON line with both breakdowns last.
+Prints one JSON line with both breakdowns after each scene's.
 """
 
 import collections
@@ -39,19 +39,27 @@ def main():
         raise SystemExit('profile_torch: needs a CUDA device')
     sys.path.insert(0, HERE)
     import chip_smoke
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(f'card: {card}', flush=True)
+    for name in ('box', 'open'):
+        print(f'scene: {name}', flush=True)
+        xml = chip_smoke.write_flagship(
+            os.path.join(HERE, 'smoke_out', 'profile', name),
+            num_init_samples=INIT_SAMPLES, scene=name)
+        profile_scene(xml, name, card)
+
+
+def profile_scene(xml, label, card):
+    """The stage and kernel breakdowns of one scene's MALA chain step."""
     from langevin_mcmc_tpu_torch.scene.parse import parse_scene
     from langevin_mcmc_tpu_torch.integrators import mlt
     from langevin_mcmc_tpu_torch.mcmc import chain, cache
     from langevin_mcmc_tpu_torch.path import replay, trace
     from langevin_mcmc_tpu_torch.ops import chunkwalk
+    import chip_smoke
 
-    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                           '--format=csv,noheader'], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    print(f'card: {card}', flush=True)
-    xml = chip_smoke.write_flagship(
-        os.path.join(HERE, 'smoke_out', 'profile', 'flagship'),
-        num_init_samples=INIT_SAMPLES)
     scene, opts, _ = parse_scene(xml, device='cuda')
     gen = torch.Generator(device='cuda').manual_seed(0)
     with torch.no_grad():
@@ -137,7 +145,8 @@ def main():
                          calls_per_step=e.count / STEPS))
         print(f'  {ms:9.2f} ms/step {e.count / STEPS:7.0f}x  '
               f'{e.key[:90]}')
-    print(json.dumps(dict(card=card, steps=STEPS, step_ms=plain_ms,
+    print(json.dumps(dict(card=card, scene=label, steps=STEPS,
+                          step_ms=plain_ms,
                           sync_step_ms=1e3 * wall / STEPS,
                           stage_ms=stage_ms,
                           window_step_ms=1e3 * window / STEPS,

@@ -15,6 +15,11 @@ file, so it also runs on a machine with a card and no JAX):
   1, 2, the default and K ranges, on planted exact ties, on rays all
   occluded within the first tile (an early exit), with all-dead blocks
   and a ray count that is not a multiple of 256;
+* on the open generated scene (no walls: rays miss), K1/K2 and their
+  plain version on camera rays, rays leaving surface points, the env
+  map's emission rays (origins on the x1000 bounding sphere, far outside
+  every chunk) and blocks of rays that all miss: a miss keeps t = BIG and
+  id -1; on the card, bit for bit with the plain version;
 * the entry points default to the card: without one, parse_scene and the
   CLI refuse unless the CPU is asked for.
 """
@@ -40,6 +45,95 @@ def scene(tmp_path_factory):
     xml = testscenes.write_scene(str(tmp_path_factory.mktemp('small')),
                                  small=True, width=32, height=24)
     return parse_scene(xml, device='cpu')[0]
+
+
+@pytest.fixture(scope='module')
+def open_scene(tmp_path_factory):
+    xml = testscenes.write_scene(str(tmp_path_factory.mktemp('open')),
+                                 small=True, width=32, height=24,
+                                 scene='open')
+    return parse_scene(xml, device='cpu')[0]
+
+
+def _open_rays(scene, n, device):
+    """n rays on the open scene: a quarter camera rays, a quarter from
+    surface points in random directions, a quarter from the x1000 bounding
+    sphere (half the env map's emission rays, which almost all miss, half
+    aimed at triangle centroids), and a quarter straight up from above a
+    corner of the floor (all miss; they sort into Morton cells of their
+    own, so whole blocks miss)."""
+    from langevin_mcmc_tpu_torch.ops import lights
+    from langevin_mcmc_tpu_torch.scene.camera import sample_primary
+    g = torch.Generator().manual_seed(9)
+    q = n // 4
+    o0, d0, mn0, mx0 = sample_primary(scene.camera, torch.rand(q, 2,
+                                                               generator=g),
+                                      torch.zeros(q))
+    cen = scene.tri_p[0].mean(1)
+    o1 = cen[torch.randint(0, scene.num_tris, (q,), generator=g)]
+    d1 = torch.randn(q, 3, generator=g)
+    d1 = d1 / d1.norm(dim=1, keepdim=True)
+    h = q // 2
+    env = torch.full((h,), scene.env_light_id, dtype=torch.int32)
+    em = lights.emit(scene, env, torch.zeros(h, dtype=torch.int32),
+                     torch.rand(h, 2, generator=g),
+                     torch.rand(h, 2, generator=g), torch.zeros(h))
+    aim = cen[torch.randint(0, scene.num_tris, (q - h,), generator=g)]
+    d2 = torch.randn(q - h, 3, generator=g)
+    d2 = d2 / d2.norm(dim=1, keepdim=True)
+    o2 = aim - d2 * scene.bsphere_radius
+    r = n - 3 * q
+    o3 = torch.rand(r, 3, generator=g) + 18.5
+    o3[:, 2] = 10.0
+    d3 = torch.tensor([[0.0, 0.0, 1.0]]).repeat(r, 1)
+    org = torch.cat([o0, o1, em['org'], o2, o3])
+    d = torch.cat([d0, d1, em['dir'], d2, d3])
+    mn = torch.cat([mn0, torch.full((n - q,), 1e-3)])
+    mx = torch.cat([mx0, torch.full((n - q,), float('inf'))])
+    return [x.to(device) for x in (org, d, mn, mx)]
+
+
+def _open_case(sc, rays):
+    """(tables, sorted rays, plain closest hit, plain occlusion) of the
+    staged walk on the open scene."""
+    tables = (sc.cw.pack, sc.cw.ids, sc.cw.chunk_lo, sc.cw.chunk_hi)
+    o, d, rng = _sorted(sc, 'staged', rays)
+    (t, tid, _, _), _ = _plain('staged', *tables, o, d, rng, False)
+    return tables, (o, d, rng), t, tid
+
+
+def test_open_scene_misses_plain(open_scene):
+    """The plain version on the open scene: misses keep t = BIG and id -1,
+    whole blocks miss, env emission rays from the far sphere hit the
+    scene, and the any hit equals the closest hit's hit set."""
+    rays = _open_rays(open_scene, 2048, 'cpu')
+    tables, srt, t, tid = _open_case(open_scene, rays)
+    hit = t < cw.BIG
+    assert (tid[~hit] == -1).all() and (tid[hit] >= 0).all()
+    live = (srt[2][:, 1] > srt[2][:, 0]).reshape(-1, cw.RAY_BLOCK)
+    block_miss = (~hit.reshape(-1, cw.RAY_BLOCK) | ~live).all(1) & live.any(1)
+    assert block_miss.any(), 'no block of live rays that all miss'
+    occ, _ = _plain('staged', *tables, *srt, True)
+    assert torch.equal(occ, hit)
+    # rays from the bounding sphere, 28,000 units out, aimed at the scene
+    # reach it; the last quarter misses
+    h, _, _, _, _ = cw.intersect_chunkwalk(open_scene, *rays[:2],
+                                           torch.zeros(2048), *rays[2:])
+    assert h[1280:1536].float().mean() > 0.5 and not h[1536:].any()
+
+
+@pytest.mark.cuda
+def test_open_scene_kernel_matches_plain_on_card(open_scene):
+    """K1/K2 on the open scene's miss-heavy rays, far env origins and
+    all-miss blocks included, bit for bit with the plain version."""
+    sc = _on_card(open_scene)
+    rays = _open_rays(open_scene, 4096, 'cuda')
+    tables = (sc.cw.pack, sc.cw.ids, sc.cw.chunk_lo, sc.cw.chunk_hi)
+    (t, tid, _, _), _ = _kernel_equals_plain('staged', sc, tables, rays)
+    hit = t < cw.BIG
+    assert (~hit).any() and hit.any() and (tid[~hit] == -1).all()
+    for S in (1, sc.cw.pack.shape[0]):
+        _kernel_equals_plain('staged', sc, tables, rays, splits=S)
 
 
 def _rays(scene, n, device):

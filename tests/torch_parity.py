@@ -18,8 +18,13 @@ def jax_scene_to_numpy(scene):
     from langevin_mcmc_tpu_torch.scene.scenedata import HOST_FIELDS
     d = {k: np.asarray(getattr(scene, k)) for k in HOST_FIELDS}
     d['num_lights'] = scene.num_lights
+    d['env_light_id'] = scene.env_light_id
     d['camera'] = {k: np.asarray(getattr(scene.camera, k))
                    for k in interop.CAMERA_FIELDS}
+    tex = scene.textures
+    d['textures'] = {k: None if getattr(tex, k) is None
+                     else np.asarray(getattr(tex, k))
+                     for k in interop.TEXTURE_FIELDS}
     return d
 
 
