@@ -41,13 +41,25 @@ Phases (any failure exits non-zero before the last line is printed):
      loops' proposals/s is the H2MC/MALA cost ratio at the same tuning;
   8. path C, the MC integrator on the flagship scene (--spp 1) with
      LMC_CW_VMEM_BYTES=6291456, so it runs K3;
-  9. path D, path A's configuration on the open scene; it runs K1/K2.
+  9. path D, path A's configuration on the open scene; it runs K1/K2;
+ 10. path E, path A's configuration with multiplexed and cache-seeded large
+     steps and light-coordinate sampling (largestepmultiplexed, samplecache,
+     uselightcoordinatesampling): generate_subpath and the cache branch's
+     perturb replay send their ray queries through K1/K2. It prints the
+     large-step lanes of each branch, the cache rows that filled and the
+     generated lanes that carried light-coordinate parameters;
+ 11. the cache phase: path E's state bootstrapped at full width, cache rows
+     pre-filled from the seed states (paths included), a few chain
+     iterations; the cache branch must run on some lanes.
+Phase 5 also holds generate_subpath with light-coordinate sampling (mixed
+(s, t) per lane) on the card against the CPU.
 Each render's film must be finite, non-negative, non-zero and 768x1024x3
 (path D's top rows, the sky, lit too), and each kernel must have been
 launched by the path that runs it (the launch counts are reset just before
 each path and read just after).
 The line before the last two is {"kernels": [...]}: per kernel its
-launches on its path, max |error| against the plain version, its time and
+launches on its path (K1/K2 also on path E: launches_path_e), max |error|
+against the plain version, its time and
 the plain version's (ms), and its bound: the larger of the f32 operations
 this run's data needs (40 per ray-triangle test, 25 per ray-AABB slab
 test: 256 rays x all chunks per block) over the 67 TFLOP/s f32 peak and
@@ -58,6 +70,7 @@ K1/K2 rows (names ending in _open) also carry miss_share.
 The last line is {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -496,6 +509,63 @@ def check_generation(small_xml):
                              f'the CPU plain path')
 
 
+def check_subpath_generation(small_xml):
+    """generate_subpath (light coordinates on, a mix of (s, t) slots across
+    lanes) on the card against the CPU from the same tape, as
+    check_generation."""
+    from langevin_mcmc_tpu_torch.scene.parse import parse_scene
+    from langevin_mcmc_tpu_torch.path import trace
+    slots = [(2, 0), (3, 0), (4, 0), (5, 0), (2, 1), (3, 1), (2, 2), (1, 2),
+             (1, 3), (4, 1), (1, 4)]
+    n = 2048
+    s = torch.as_tensor([slots[i % len(slots)][0] for i in range(n)],
+                        dtype=torch.int32)
+    t = torch.as_tensor([slots[i % len(slots)][1] for i in range(n)],
+                        dtype=torch.int32)
+    out = {}
+    for dev in ('cuda', 'cpu'):
+        scene, opts, _ = parse_scene(small_xml, device=dev)
+        assert opts.use_light_coordinate_sampling
+        u = torch.as_tensor(np.random.default_rng(4).random(
+            (n, trace.Tape.size(opts.max_depth)), dtype=np.float32),
+            device=dev)
+        with torch.no_grad():
+            rec, res = trace.generate_subpath(
+                scene, opts, trace.Tape(u, opts.max_depth), s.to(dev),
+                t.to(dev))
+        out[dev] = (res['ls'].cpu().numpy().astype(np.float64),
+                    rec.cam_bsdf_rnd.cpu().numpy())
+    (a, ra), (b, rb) = out['cuda'], out['cpu']
+    if not np.isfinite(a).all():
+        raise AssertionError('non-finite subpath contributions on the card')
+    rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-9)
+    bad = int((rel > 1e-3).sum())
+    rbad = int((np.abs(ra - rb).reshape(n, -1).max(1) > 1e-3).sum())
+    log(f'generate_subpath card vs CPU (light coordinates, '
+        f'{len(slots)} (s, t) slots): {n} lanes, {int((b > 0).sum())} '
+        f'valid, {bad} beyond rtol 1e-3 (max rel {rel.max():.3g}), stored '
+        f'parameters differ beyond 1e-3 on {rbad}, mean ls {a.mean():.6g} '
+        f'vs {b.mean():.6g}')
+    if bad > n // 100 or rbad > n // 100:
+        raise AssertionError(f'{max(bad, rbad)} lanes of card subpath '
+                             f'generation diverge from the CPU plain path')
+
+
+def count_light_coords():
+    """Count, from now on, the generated lanes that carry light-coordinate
+    parameters (trace._shift_light_coords sees every generation's lc_ok).
+    Returns the counter: a dict whose 'lanes' is a device tensor."""
+    from langevin_mcmc_tpu_torch.path import trace
+    shift = trace._shift_light_coords
+    counter = {'lanes': 0}
+
+    def counting(opts, cam_bsdf_rnd, lc_ok, lc_param):
+        counter['lanes'] = counter['lanes'] + lc_ok.any(1).sum()
+        return shift(opts, cam_bsdf_rnd, lc_ok, lc_param)
+    trace._shift_light_coords = counting
+    return counter
+
+
 def render(label, xml, env, sky=False):
     """One render through the CLI with env set around it. Checks the film
     (sky: its top rows must be lit too); returns (CLI result, launch counts
@@ -553,6 +623,103 @@ def chain_rate(label, res):
     return props
 
 
+def large_step_line(label, res, lc_counter):
+    """Path E's large-step lanes per branch, cache rows and
+    light-coordinate lanes."""
+    tm = res['timings']
+    log(f'{label}: large-step lanes {tm["large"]} (multiplexed {tm["mmlt"]}, '
+        f'cache {tm["cache"]}, cache accepts {tm["cache_accepts"]}); cache '
+        f'rows full at the end {tm["cache_rows_ready"]} of '
+        f'{res["opts"].pss_max_length + 1}; generated lanes with '
+        f'light-coordinate parameters {int(lc_counter["lanes"])} '
+        f'(bootstrap and large steps); snapshot writes {tm["report_s"]:.2f} s')
+    if tm['large'] <= 0 or tm['mmlt'] <= 0:
+        raise AssertionError(f'{label}: no multiplexed large step ran')
+    if int(lc_counter['lanes']) <= 0:
+        raise AssertionError(f'{label}: no lane took light coordinates')
+
+
+def cache_bytes(cache):
+    """(bytes the global cache holds, bytes of its path store)."""
+    def tensors(obj):
+        return [x for x in (getattr(obj, f.name)
+                            for f in dataclasses.fields(obj))
+                if isinstance(x, torch.Tensor)]
+    rec = nbytes(*tensors(cache.rec))
+    return nbytes(*tensors(cache)) + rec, rec
+
+
+def prefill_cache(banked, opts):
+    """The banked state with every seed state (path included) pushed into
+    the cache: the rows of the dimensions with at least pss_max_size seeds
+    fill."""
+    from langevin_mcmc_tpu_torch.mcmc import cache as cache_mod
+    from langevin_mcmc_tpu_torch.path.records import get_path_pss, pss_dim
+    st = banked.state
+    C, Dm = opts.num_chains, 2 * opts.max_depth
+    dev = st.ls_score.device
+    zero = torch.zeros((C, Dm), device=dev)
+    cache = cache_mod.push_batch(
+        banked.cache, pss_dim(st.rec), get_path_pss(st.rec, Dm), zero, zero,
+        st.ls_score, torch.ones(C, dtype=torch.bool, device=dev), opts,
+        s_tag=st.rec.cam_depth, t_tag=st.rec.lgt_depth, rec=st.rec)
+    return dataclasses.replace(banked, cache=cache)
+
+
+def cache_phase(xml, steps=4):
+    """Path E's configuration with the cache rows pre-filled from the seed
+    states (paths included), so cache-seeded large steps run from the first
+    iteration (organic fills need thousands of steps). Fails unless some
+    large-step lanes took the cache branch and the film is finite and
+    non-negative."""
+    from langevin_mcmc_tpu_torch.scene.parse import parse_scene
+    from langevin_mcmc_tpu_torch.integrators import mlt
+    from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
+    scene, opts, _ = parse_scene(xml, device='cuda')
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device='cuda').manual_seed(2)
+    C = opts.num_chains
+    with torch.no_grad():
+        t0 = time.time()
+        b, length_dist, banked = mlt.bootstrap(scene, opts, gen, chunk=CHUNK)
+        init = banked
+        banked = prefill_cache(mlt.attach_cache(banked, opts), opts)
+        cache = banked.cache
+        total, rec_bytes = cache_bytes(cache)
+        ready = int((cache.count >= cache.size).sum())
+        torch.cuda.synchronize()
+        log(f'cache phase: bootstrap and pre-fill {time.time() - t0:.2f} s; '
+            f'{ready} of {cache.count.shape[0]} rows full (counts '
+            f'{cache.count.tolist()}); cache {total / 2**20:.1f} MiB, of '
+            f'which stored paths {rec_bytes / 2**20:.1f} MiB '
+            f'({cache.count.shape[0]} x {cache.size} records)')
+        if ready == 0:
+            raise AssertionError('cache phase: the pre-fill filled no row')
+        step = mlt.make_mlt_step(scene, opts, b, opts.large_step_probability,
+                                 length_dist=length_dist)
+        film = torch.zeros((scene.height, scene.width, 3), device='cuda')
+        cw.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(steps):
+            banked = step(gen, banked, film, init)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+    counts = {k: int(v) for k, v in step.counts.items()}
+    f = film.cpu().numpy()
+    log(f'cache phase: {steps} iterations, {dt / steps * 1e3:.1f} ms each, '
+        f'{steps * C / dt:.1f} proposals/s; large-step lanes '
+        f'{counts["large"]} (multiplexed {counts["mmlt"]}, cache '
+        f'{counts["cache"]}, cache accepts {counts["cache_accepts"]}); '
+        f'kernel launches {dict(cw.launch_counts)}; peak device memory '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; film mean '
+        f'{f.mean():.6g}, min {f.min():.6g}')
+    if counts['cache'] <= 0:
+        raise AssertionError('cache phase: no lane took the cache branch')
+    if not np.isfinite(f).all() or f.min() < 0.0:
+        raise AssertionError('cache phase: film not finite and non-negative')
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device (torch.cuda.is_available() '
@@ -587,6 +754,12 @@ def main():
     small_open = testscenes.write_scene(os.path.join(OUT, 'small_open'),
                                         small=True, width=64, height=48,
                                         max_depth=4, scene='open')
+    small_lc = testscenes.write_scene(os.path.join(OUT, 'small_lc'),
+                                      small=True, width=64, height=48,
+                                      max_depth=4, large_step='cache',
+                                      light_coords=True)
+    xml_e = write_flagship(os.path.join(OUT, 'flagship_cache'),
+                           large_step='cache', light_coords=True)
     scene, opts, _ = parse_scene(xml, device='cuda')
     log(f'flagship scene: {scene.num_tris} triangles, '
         f'{scene.cw.pack.shape[0]} chunks of 128 '
@@ -605,6 +778,7 @@ def main():
     del scene
     check_generation(small_xml)
     check_generation(small_open)
+    check_subpath_generation(small_lc)
 
     res_a, launch_a = render('path A (MALA)', xml, {})
     rate_a = chain_rate('path A (MALA)', res_a)
@@ -620,6 +794,19 @@ def main():
     rate_d = chain_rate('path D (MALA, open scene)', res_d)
     log(f'path D / path A chain-loop proposals/s (same call): '
         f'{rate_d:.1f} / {rate_a:.1f} = {rate_d / rate_a:.3f}')
+    lc_counter = count_light_coords()
+    res_e, launch_e = render('path E (MALA, multiplexed + cache + light '
+                             'coordinates)', xml_e, {})
+    rate_e = chain_rate('path E', res_e)
+    large_step_line('path E', res_e, lc_counter)
+    log(f'path E / path A chain-loop proposals/s (same call): '
+        f'{rate_e:.1f} / {rate_a:.1f} = {rate_e / rate_a:.3f}')
+    cache_phase(xml_e)
+    for key in ('split_closest_hit', 'split_any_hit'):
+        rows[key]['launches_path_e'] = launch_e[key]
+        if launch_e[key] <= 0:
+            raise AssertionError(f'{rows[key]["name"]} was never launched by '
+                                 f'path E')
     for key, row in open_kernel_rows.items():
         row['launches'] = launch_d[key]
         if launch_d[key] <= 0:

@@ -3,9 +3,11 @@
     python -m langevin_mcmc_tpu_torch scene.xml [--spp N] [--device cpu]
 
 Dispatches on the <dpt> integrator: "mcmc" (MALA or H2MC small steps with
-plain large steps) or "mc" (bidirectional path tracing). Writes
-<output>_timeuse_<seconds>s.exr and .png into --output-dir. Renders on the
-card; on a machine without one, --device cpu must be given.
+plain, multiplexed or cache-seeded large steps) or "mc" (bidirectional
+path tracing). Writes <output>_timeuse_<seconds>s.exr and .png into
+--output-dir, and intermediate.exr/.png there every reportintervalspp spp
+of an MCMC render. Renders on the card; on a machine without one,
+--device cpu must be given.
 """
 
 import argparse
@@ -72,8 +74,10 @@ def main(argv=None):
                 film = render_mc(scene, opts, gen, chunk=args.chunk)
                 b = None
             else:
-                film, b = render_mlt(scene, opts, gen, chunk=args.chunk,
-                                     progress=True, timings=timings)
+                film, b = render_mlt(
+                    scene, opts, gen, chunk=args.chunk, progress=True,
+                    timings=timings, intermediate_path=os.path.join(
+                        args.output_dir, 'intermediate'))
         film = film.cpu().numpy()
         elapsed = time.time() - t0
         if b is not None:

@@ -1,6 +1,6 @@
 """MLT integrator: bootstrap, the vectorised chain step and film accumulation
-(port of integrators/mlt.py for MALA or H2MC small steps with plain large
-steps).
+(port of integrators/mlt.py for MALA or H2MC small steps with plain,
+multiplexed or cache-seeded large steps).
 
 * bootstrap generates num_init_samples paths in wavefront chunks, takes
   the average brightness (the normalization) and the path-length
@@ -9,9 +9,10 @@ steps).
 * the chain step advances all chains at once: the large step runs on a
   gathered subset of the lanes that want one, the MALA or H2MC small step
   on all;
-* each chain carries its current state's splat bank (a large-step state
-  re-splats every technique of its path weighted 1 - a, a small-step state
-  its single technique);
+* each chain carries its current state's splat bank (a plain large-step
+  state re-splats every technique of its path weighted 1 - a; a
+  multiplexed or cache-seeded large-step state and a small-step state
+  their single technique);
 * outlier chains reset to their seed after consecutive-reject thresholds.
 """
 
@@ -27,6 +28,7 @@ from ..ops.film import splat
 from ..mcmc import chain as chain_mod
 from ..mcmc import cache as cache_mod
 from ..utils.distribution import Distribution1D
+from ..utils import image_io
 from ..utils.tree import tree_map, tree_take
 from .pathtrace import render_direct
 
@@ -89,10 +91,22 @@ def bootstrap(scene, opts, generator, chunk=4096):
     return b, length_dist, state
 
 
-def bank_slots(D):
-    """Width of the per-chain splat bank for plain large steps: every
-    s >= 2 technique of a path splats at the one camera screen position,
-    so they pre-sum into one point; the s == 1 techniques keep their own."""
+def large_kind(opts):
+    """The large-step kernel: 'cache' (cache-seeded jumps) for MALA with
+    sample_from_global_cache, else 'mmlt' (multiplexed) or 'plain'."""
+    if opts.sample_from_global_cache and opts.mala:
+        return 'cache'
+    return 'mmlt' if opts.large_step_multiplexed else 'plain'
+
+
+def bank_slots(opts, D):
+    """Width of the per-chain splat bank. Plain large steps: every s >= 2
+    technique of a path splats at the one camera screen position, so they
+    pre-sum into one point; the s == 1 techniques keep their own.
+    Multiplexed and cache-seeded large steps propose one technique: one
+    slot."""
+    if large_kind(opts) != 'plain':
+        return 1
     _, lgt_sel, _, _ = _slot_tables(D)
     return 1 + len(lgt_sel)
 
@@ -131,10 +145,10 @@ def init_full_state(opts, rec, contrib, screen, ls, ss, score_sum, flat,
     weighted norm/scoreSum, collapsed; else the single technique norm/ls."""
     C = ls.shape[0]
     D = opts.max_depth
-    NB = bank_slots(D)
+    NB = bank_slots(opts, D)
     base = chain_mod.init_chain_state(rec, contrib, screen, ls, ss,
                                       score_sum, opts)
-    if from_large:
+    if from_large and NB > 1:
         _, _, s_tags, _ = _slot_tables(D)
         w = normalization / torch.clamp(score_sum, min=1e-12)
         bank_scr, bank_ctr = collapse_flat(flat, s_tags, w)
@@ -149,31 +163,67 @@ def init_full_state(opts, rec, contrib, screen, ls, ss, score_sum, flat,
 
 
 def attach_cache(banked: BankedState, opts):
-    """Attach an empty global cache to a MALA run's state."""
-    if not opts.mala or opts.h2mc:
+    """Attach an empty global cache to a MALA run's state (with H2MC small
+    steps too, as the JAX package does: only the MALA small step fills it,
+    so there it stays empty). With cache sampling on it keeps the pushed
+    paths as well."""
+    if not opts.mala:
         return banked
+    rec_proto = banked.state.rec if opts.sample_from_global_cache else None
     cache = cache_mod.make_cache(opts, 2 * opts.max_depth,
-                                 banked.bank_screen.device)
+                                 banked.bank_screen.device, rec_proto)
     return dataclasses.replace(banked, cache=cache)
 
 
-def make_mlt_step(scene, opts, normalization, ls_prob):
+def make_mlt_step(scene, opts, normalization, ls_prob, length_dist=None):
     """The per-iteration chain update:
     step(generator, banked, film, init_banked) -> banked; the film
     [H, W, 3] is accumulated in place.
 
-    Only K = ceil(1.3 * C * ls_prob) lanes run the fresh path generation
-    per step: lanes wanting a large step are gathered to the front (random
+    Only K = ceil(1.3 * C * ls_prob) lanes run the large step per step:
+    lanes wanting a large step are gathered to the front (random
     tiebreak), processed and scattered back; overflow beyond K falls back
-    to a small step that iteration."""
+    to a small step that iteration.
+
+    length_dist: the bootstrap's path-length distribution, needed by the
+    multiplexed and cache-seeded large steps. step.counts sums the
+    large-step lanes of every call on the device (no sync): 'large' (lanes
+    that took a large step) and, for multiplexed and cache-seeded steps,
+    'mmlt' (the multiplexed uniform proposals among them), 'cache' (the
+    cache-seeded ones) and 'cache_accepts'."""
     C = opts.num_chains
     D = opts.max_depth
     Dm = 2 * D
-    NB = bank_slots(D)
+    NB = bank_slots(opts, D)
+    kind = large_kind(opts)
+    if kind != 'plain' and length_dist is None:
+        raise ValueError('multiplexed and cache-seeded large steps need the '
+                         'bootstrap length distribution')
     K = min(C, max(int(C * min(ls_prob, 1.0) * 1.3) + 1, 8))
     _, _, s_tags_static, _ = _slot_tables(D)
     dev = scene.device
     h2mc = opts.h2mc
+
+    counts = {}
+
+    def count(key, mask):
+        counts[key] = counts.get(key, 0) + mask.sum()
+
+    def run_large(gen, state_k, cache):
+        rand = lambda *s: torch.rand(s, generator=gen, device=dev)
+        tape = trace.draw_tape(gen, K, D, dev)
+        if kind == 'plain':
+            return chain_mod.large_step(scene, opts, state_k, tape, rand(K))
+        if kind == 'mmlt':
+            return chain_mod.large_step_multiplexed(
+                scene, opts, state_k, length_dist, tape, rand(K), rand(K))
+        u_len, u_split, u_pick, u_samp = rand(K), rand(K), rand(K), rand(K)
+        offset = torch.randn((K, Dm), generator=gen,
+                             device=dev) * opts.cache_sig
+        noise = chain_mod.perturb_noise(gen, K, D, opts, dev)
+        return chain_mod.large_step_cache(
+            scene, opts, state_k, length_dist, cache, tape, u_len, u_split,
+            u_pick, u_samp, offset, noise)
 
     def step(gen, banked, film, init_banked):
         state = banked.state
@@ -187,11 +237,15 @@ def make_mlt_step(scene, opts, normalization, ls_prob):
         else:
             sel = torch.arange(C, device=dev)
         state_k = tree_take(state, sel)
-        tape = trace.draw_tape(gen, K, D, dev)
-        prop_lk, a_lk = chain_mod.large_step(scene, opts, state_k, tape,
-                                             rand(K))
+        prop_lk, a_lk = run_large(gen, state_k, cache)
         did_large_k = want_large[sel]
         a_lk = torch.where(did_large_k, a_lk, torch.zeros_like(a_lk))
+        count('large', did_large_k)
+        if kind != 'plain':
+            use_cache_k = prop_lk.get('use_cache',
+                                      torch.zeros_like(did_large_k))
+            count('mmlt', did_large_k & ~use_cache_k)
+            count('cache', did_large_k & use_cache_k)
 
         def scat(x):
             full = torch.zeros((C,) + x.shape[1:], dtype=x.dtype, device=dev)
@@ -201,7 +255,8 @@ def make_mlt_step(scene, opts, normalization, ls_prob):
         is_large = scat(did_large_k)
         a_l = scat(a_lk)
         prop_l = {k: (tree_map(scat, v) if k == 'rec' else scat(v))
-                  for k, v in prop_lk.items() if k != 'all_flat'}
+                  for k, v in prop_lk.items()
+                  if k not in ('all_flat', 'use_cache')}
 
         # isotropic-mixing lanes share the small step's single replay
         use_iso = rand(C) < opts.uniform_mixing_probability
@@ -226,12 +281,24 @@ def make_mlt_step(scene, opts, normalization, ls_prob):
         small_w = torch.where((~is_large) & (a > 0.0),
                               a * normalization
                               / torch.clamp(small_ls, min=1e-12), zero)
-        lf = prop_lk['all_flat']
-        inv_ss = 1.0 / torch.clamp(prop_lk['score_sum'], min=1e-12)
-        lscr_k, lctr_k = collapse_flat(
-            lf, s_tags_static,
-            torch.where(a_lk > 0.0, a_lk * normalization * inv_ss,
-                        torch.zeros_like(a_lk)))
+        if kind == 'plain':
+            # every technique of the large proposal, collapsed
+            lf = prop_lk['all_flat']
+            inv_ss = 1.0 / torch.clamp(prop_lk['score_sum'], min=1e-12)
+            lscr_k, lctr_k = collapse_flat(
+                lf, s_tags_static,
+                torch.where(a_lk > 0.0, a_lk * normalization * inv_ss,
+                            torch.zeros_like(a_lk)))
+            bscr_k, bctr_k = collapse_flat(lf, s_tags_static,
+                                           normalization * inv_ss)
+        else:
+            # multiplexed / cache-seeded: the one technique of each lane
+            inv_ls = normalization / torch.clamp(prop_lk['ls'], min=1e-12)
+            w_k = torch.where(a_lk > 0.0, a_lk * inv_ls,
+                              torch.zeros_like(a_lk))
+            lscr_k = bscr_k = prop_lk['screen'][:, None]
+            lctr_k = (prop_lk['contrib'] * w_k[:, None])[:, None]
+            bctr_k = (prop_lk['contrib'] * inv_ls[:, None])[:, None]
         splat(film,
               torch.cat([banked.bank_screen.reshape(-1, 2), small_screen,
                          lscr_k.reshape(-1, 2)]),
@@ -239,13 +306,13 @@ def make_mlt_step(scene, opts, normalization, ls_prob):
                           * w_cur[:, None, None]).reshape(-1, 3),
                          small_contrib * small_w[:, None],
                          lctr_k.reshape(-1, 3)]))
-        bscr_k, bctr_k = collapse_flat(lf, s_tags_static,
-                                       normalization * inv_ss)
         lbank_scr = scat(bscr_k)
         lbank_ctr = scat(bctr_k)
 
         # ---- accept / reject ----
         acc = (a > 0.0) & (rand(C) <= a)
+        if kind == 'cache':
+            count('cache_accepts', acc[sel] & did_large_k & use_cache_k)
         prop_rec = chain_mod._where_state(is_large, prop_l['rec'],
                                           prop_adv['rec'])
         prop_contrib = torch.where(is_large[:, None], prop_l['contrib'],
@@ -330,6 +397,7 @@ def make_mlt_step(scene, opts, normalization, ls_prob):
                                      new_bank_ctr),
             cache=cache)
 
+    step.counts = counts
     return step
 
 
@@ -356,8 +424,11 @@ def _mala_commit(state, prop_adv, cache, acc_large, acc_small_adv, ran_adv,
         cache, 2 * (state.cached_s + state.cached_t - 1),
         state.cached_pss, state.v1, state.v2, state.cached_weight,
         acc_large & state.buffered, opts, s_tag=state.cached_s,
-        t_tag=state.cached_t)
+        t_tag=state.cached_t, rec=state.cached_rec)
     acc = acc_large | acc_small_adv
+    cached_rec = state.cached_rec
+    if cached_rec is not None:
+        cached_rec = tree_map(snap_sel, snap['rec'], cached_rec)
     return dict(
         v1=new_v1, v2=new_v2,
         g=torch.where(acc_small_adv[:, None], prop_adv['g_prop'], state.g),
@@ -371,23 +442,30 @@ def _mala_commit(state, prop_adv, cache, acc_large, acc_small_adv, ran_adv,
         cached_pss=snap_sel(snap['pss'], state.cached_pss),
         cached_s=snap_sel(snap['s'], state.cached_s),
         cached_t=snap_sel(snap['t'], state.cached_t),
-        cached_weight=snap_sel(snap['weight'], state.cached_weight)), cache
+        cached_weight=snap_sel(snap['weight'], state.cached_weight),
+        cached_rec=cached_rec), cache
 
 
 def render_mlt(scene, opts, generator, num_steps=None, progress=False,
-               chunk=4096, timings=None):
+               chunk=4096, timings=None, intermediate_path=None):
     """Full MCMC render. Returns (film [H, W, 3], normalization b).
 
     num_steps: chain iterations (default: opts.spp * pixels / chains).
     timings: optional dict, filled with the seconds of each phase
-    (bootstrap, direct, chain loop; each ends in a device sync) and the
-    number of chain iterations."""
+    (bootstrap, direct, chain loop, snapshot writes; each ends in a device
+    sync), the number of chain iterations, the large-step lane counts of
+    the steps (make_mlt_step's step.counts) and, with a cache, the rows
+    that filled ('cache_rows_ready').
+    intermediate_path: base path of the snapshots {path}.exr and
+    {path}.png, written every report_interval_spp spp of the chain loop
+    (when opts.report_interval_spp > 0) until the last iteration; their
+    writes are timed apart from the chain loop (timings['report_s'])."""
     dev = scene.device
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == 'cuda' \
         else (lambda: None)
     timings = {} if timings is None else timings
     t0 = _time.time()
-    b, _, banked = bootstrap(scene, opts, generator, chunk=chunk)
+    b, length_dist, banked = bootstrap(scene, opts, generator, chunk=chunk)
     sync()
     timings['bootstrap_s'] = _time.time() - t0
     normalization = b
@@ -409,21 +487,42 @@ def render_mlt(scene, opts, generator, num_steps=None, progress=False,
     ls_prob1 = opts.large_step_probability
     scale = 1.0 if opts.h2mc else opts.large_step_prob_scale
     ls_prob2 = min(ls_prob1 * scale, 1.0)
-    step1 = make_mlt_step(scene, opts, normalization, ls_prob1)
+    step1 = make_mlt_step(scene, opts, normalization, ls_prob1,
+                          length_dist=length_dist)
     step2 = step1 if ls_prob2 == ls_prob1 else \
-        make_mlt_step(scene, opts, normalization, ls_prob2)
+        make_mlt_step(scene, opts, normalization, ls_prob2,
+                      length_dist=length_dist)
     phase_switch = int(num_steps * opts.ls_ratio)
+    report_every = 0
+    if intermediate_path is not None and opts.report_interval_spp > 0:
+        report_every = max(int(opts.report_interval_spp * npix / C), 1)
     film = torch.zeros((scene.height, scene.width, 3), device=dev)
     init_banked = banked
     banked = attach_cache(banked, opts)
+    report_s = 0.0
     t0 = _time.time()
     for i in range(num_steps):
         step = step1 if i <= phase_switch else step2
         banked = step(generator, banked, film, init_banked)
         if progress and i % max(num_steps // 10, 1) == 0:
             print(f'mlt step {i}/{num_steps}', flush=True)
+        done = i + 1
+        if report_every and done % report_every == 0 and done < num_steps:
+            sync()
+            t_r = _time.time()
+            snap = (direct + film / (done * C / npix)).cpu().numpy()
+            image_io.write_image(f'{intermediate_path}.exr', snap)
+            image_io.write_image(f'{intermediate_path}.png', snap)
+            report_s += _time.time() - t_r
     sync()
-    timings['loop_s'] = _time.time() - t0
+    timings['loop_s'] = _time.time() - t0 - report_s
+    timings['report_s'] = report_s
     timings['steps'] = num_steps
+    for st in {step1, step2}:
+        for k, v in st.counts.items():
+            timings[k] = timings.get(k, 0) + int(v)
+    if banked.cache is not None:
+        timings['cache_rows_ready'] = int(
+            (banked.cache.count >= banked.cache.size).sum())
     effective_spp = num_steps * C / npix
     return direct + film / effective_spp, b

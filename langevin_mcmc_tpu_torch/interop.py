@@ -56,8 +56,11 @@ def scene_from_numpy(d, device='cpu'):
 def _from_numpy(cls, d, device):
     kw = {}
     for f in dataclasses.fields(cls):
-        v = d[f.name]
-        if f.name == 'rec':
+        # an optional field (default None) may be absent or None
+        v = d.get(f.name) if f.default is None else d[f.name]
+        if v is None:
+            kw[f.name] = None
+        elif f.name in ('rec', 'cached_rec'):
             kw[f.name] = record_from_numpy(v, device)
         elif f.name == 'gaussian':
             kw[f.name] = _from_numpy(Gaussian, v, device)
@@ -73,8 +76,12 @@ def _to_numpy(obj):
     out = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
-        out[f.name] = _to_numpy(v) if dataclasses.is_dataclass(v) \
-            else v.detach().cpu().numpy()
+        if v is None:
+            continue
+        if dataclasses.is_dataclass(v):
+            out[f.name] = _to_numpy(v)
+        else:
+            out[f.name] = v.detach().cpu().numpy()
     return out
 
 
@@ -97,5 +104,6 @@ def chain_state_from_numpy(d, device='cpu'):
 
 def record_to_numpy(obj):
     """PathRecord, Contribs or ChainState -> (nested) dict of numpy
-    arrays."""
+    arrays; an optional field that is None (a ChainState's cached_rec
+    without cache sampling) is left out."""
     return _to_numpy(obj)

@@ -1,20 +1,29 @@
 """Global PSS cache: per-dimension moment store with radius-kNN
-interpolation (port of mcmc/cache.py; the stored path records and the
-KDE/sampling queries of cache-seeded large steps are not ported yet).
+interpolation, and the path store the cache-seeded large steps sample from
+(port of mcmc/cache.py).
 
 Storage is a dense [NDIM, SIZE, Dm] store of (pss, v1, v2) plus path
-weights, one row per PSS dimension. Each MLT step's pushes are scattered
-into their dimension rows at count + rank. Queries are brute-force
-radius-kNN over the lane's dimension row (k = pss_knn, radius^2 =
-dim * pss_query_dist^2) with weights 1 / (d_sq^2 + 1e-6). Distances are
-computed subtract-then-square, exactly; the JAX package uses the f32
-expansion |q|^2 - 2 q.e + |e|^2, which differs for near-coincident
-entries.
+weights and (s, t) tags, one row per PSS dimension; with cache sampling on,
+also the whole path records, [NDIM, SIZE, ...] per record field. Each MLT
+step's pushes are scattered into their dimension rows at count + rank.
+
+* query_knn: brute-force radius-kNN over the lane's dimension row
+  (k = pss_knn, radius^2 = dim * pss_query_dist^2) with weights
+  1 / (d_sq^2 + 1e-6). Distances are computed subtract-then-square,
+  exactly; the JAX package uses the f32 expansion |q|^2 - 2 q.e + |e|^2,
+  which differs for near-coincident entries.
+* eval_pdf_cache: the torus-wrapped Gaussian KDE pdf over the row's
+  same-(s, t) entries, each kernel weighted by its path weight over the
+  row's weight sum.
+* sample_cache: a stored entry drawn by the path-weight CDF.
 """
 
 import dataclasses
+import math
 
 import torch
+
+from ..utils.tree import tree_map
 
 
 @dataclasses.dataclass
@@ -27,30 +36,39 @@ class GlobalCache:
     t_tag: torch.Tensor      # [NDIM, SIZE] int32
     count: torch.Tensor      # [NDIM] int32
     score_sum: torch.Tensor  # [NDIM]
+    rec: object = None       # PathRecord [NDIM, SIZE, ...] | None
 
     @property
     def size(self):
         return self.pss.shape[1]
 
 
-def make_cache(opts, max_dim, device):
+def make_cache(opts, max_dim, device, rec_proto=None):
+    """rec_proto: a PathRecord of [C, ...] fields whose per-lane shapes and
+    dtypes the path store takes; None keeps no paths."""
     ndim = opts.pss_max_length + 1          # rows indexed by dim directly
     size = opts.pss_max_size
     z = lambda: torch.zeros((ndim, size, max_dim), device=device)
     zi = lambda: torch.zeros((ndim, size), dtype=torch.int32, device=device)
+    rec = None
+    if rec_proto is not None:
+        rec = tree_map(lambda a: torch.zeros((ndim, size) + a.shape[1:],
+                                             dtype=a.dtype, device=device),
+                       rec_proto)
     return GlobalCache(pss=z(), v1=z(), v2=z(),
                        weight=torch.zeros((ndim, size), device=device),
                        s_tag=zi(), t_tag=zi(),
                        count=torch.zeros(ndim, dtype=torch.int32,
                                          device=device),
-                       score_sum=torch.zeros(ndim, device=device))
+                       score_sum=torch.zeros(ndim, device=device), rec=rec)
 
 
 def push_batch(cache: GlobalCache, dims, pss, v1, v2, weight, mask, opts,
-               s_tag=None, t_tag=None):
+               s_tag=None, t_tag=None, rec=None):
     """Scatter a batch of chain entries into their dimension rows.
-    dims [C] int; pss/v1/v2 [C, Dm]; weight [C]; mask [C] bool. Lanes of
-    one dimension take consecutive slots in lane order. Returns a new
+    dims [C] int; pss/v1/v2 [C, Dm]; weight [C]; mask [C] bool; rec: the
+    lanes' PathRecord, stored when the cache keeps paths. Lanes of one
+    dimension take consecutive slots in lane order. Returns a new
     cache."""
     ndim, size = cache.weight.shape
     C = dims.shape[0]
@@ -82,13 +100,16 @@ def push_batch(cache: GlobalCache, dims, pss, v1, v2, weight, mask, opts,
     add = torch.zeros(ndim, dtype=torch.int32, device=dev).index_add_(
         0, d[ok], torch.ones_like(d[ok], dtype=torch.int32))
     add_w = torch.zeros(ndim, device=dev).index_add_(0, d[ok], weight[ok])
+    new_rec = cache.rec
+    if cache.rec is not None and rec is not None:
+        new_rec = tree_map(scat, cache.rec, rec)
     return GlobalCache(
         pss=scat(cache.pss, pss), v1=scat(cache.v1, v1),
         v2=scat(cache.v2, v2), weight=scat(cache.weight, weight),
         s_tag=scat(cache.s_tag, zero_i if s_tag is None else s_tag),
         t_tag=scat(cache.t_tag, zero_i if t_tag is None else t_tag),
         count=torch.clamp(cache.count + add, max=size),
-        score_sum=cache.score_sum + add_w)
+        score_sum=cache.score_sum + add_w, rec=new_rec)
 
 
 def query_knn(cache: GlobalCache, dims, pss, opts, chunk=256):
@@ -125,3 +146,55 @@ def query_knn(cache: GlobalCache, dims, pss, opts, chunk=256):
     v1 = torch.einsum('ck,ckd->cd', w, cache.v1[d[:, None], best_i])
     v2 = torch.einsum('ck,ckd->cd', w, cache.v2[d[:, None], best_i])
     return found, v1 / wsum[:, None], v2 / wsum[:, None]
+
+
+def eval_pdf_cache(cache: GlobalCache, dims, pss, s, t, opts, chunk=256):
+    """Torus-wrapped Gaussian KDE pdf of pss [C, Dm] over the same-(s, t)
+    entries of each lane's dimension row: sum_i w_i N_wrap(pss; e_i,
+    cache_sig^2 I) / score_sum, in the first dims coordinates. The row is
+    walked in chunks so the [C, chunk, Dm] temporaries stay small.
+    Returns [C]."""
+    ndim, size = cache.weight.shape
+    C, Dm = pss.shape
+    dev = pss.device
+    d = torch.clamp(dims, 0, ndim - 1).long()
+    sig = opts.cache_sig
+    dim_mask = torch.arange(Dm, device=dev)[None, :] < dims[:, None]
+    log_norm_1d = -0.5 * math.log(2.0 * math.pi) - math.log(sig)
+    live_n = cache.count[d]
+    acc = torch.zeros(C, device=dev)
+    for lo in range(0, size, chunk):
+        idx = torch.arange(lo, min(lo + chunk, size), device=dev)
+        e = cache.pss[d[:, None], idx[None, :]]              # [C, n, Dm]
+        diff = torch.abs(e - pss[:, None, :])
+        diff = torch.minimum(diff, 1.0 - diff)               # torus wrap
+        log_k = -0.5 * torch.square(diff / sig) + log_norm_1d
+        log_k = torch.where(dim_mask[:, None, :], log_k,
+                            torch.zeros_like(log_k))
+        kern = torch.exp(torch.sum(log_k, -1))               # [C, n]
+        valid = ((idx[None, :] < live_n[:, None])
+                 & (cache.s_tag[d[:, None], idx[None, :]] == s[:, None])
+                 & (cache.t_tag[d[:, None], idx[None, :]] == t[:, None]))
+        w = cache.weight[d[:, None], idx[None, :]]
+        acc = acc + torch.sum(torch.where(valid, kern * w,
+                                          torch.zeros_like(kern)), 1)
+    return acc / torch.clamp(cache.score_sum[d], min=1e-30)
+
+
+def sample_cache(cache: GlobalCache, dims, u):
+    """Draw a stored entry of each lane's dimension row by the path-weight
+    CDF at the uniform u [C]. Returns (idx [C], pss [C, Dm], weight [C],
+    PathRecord of the entries or None)."""
+    ndim, size = cache.weight.shape
+    dev = u.device
+    d = torch.clamp(dims, 0, ndim - 1).long()
+    w = cache.weight[d]                                      # [C, SIZE]
+    valid = torch.arange(size, device=dev)[None, :] < cache.count[d][:, None]
+    w = torch.where(valid, w, torch.zeros_like(w))
+    cdf = torch.cumsum(w, 1)
+    x = u[:, None] * cdf[:, -1:]
+    idx = torch.clamp(torch.sum((cdf <= x).to(torch.int64), 1), 0, size - 1)
+    rec = None
+    if cache.rec is not None:
+        rec = tree_map(lambda a: a[d, idx], cache.rec)
+    return idx, cache.pss[d, idx], cache.weight[d, idx], rec

@@ -1,11 +1,11 @@
-"""Vectorised Markov-chain state and the mutation kernels of the ported
-configuration: the plain large step and the MALA and H2MC small steps
-(port of mcmc/chain.py; the isotropic-only, multiplexed and cache-seeded
-kernels are not ported yet).
+"""Vectorised Markov-chain state and the mutation kernels: the plain,
+multiplexed and cache-seeded large steps and the MALA and H2MC small steps
+(port of mcmc/chain.py; the isotropic-only small step is not ported yet).
 
 All chains advance in lockstep as one wavefront. Random inputs are
-explicit: a uniform tape and pick uniforms for the large step, standard
-normal draws and perturb noise for the small step.
+explicit: uniform tapes and uniforms for the large steps, standard normal
+draws, PSS jitters and perturb noise for the small step and the cache
+replay.
 """
 
 import dataclasses
@@ -13,7 +13,8 @@ import dataclasses
 import torch
 
 from ..path import trace, replay
-from ..path.records import PathRecord, to_subpath, get_path_pss, pss_dim
+from ..path.records import (PathRecord, to_subpath, get_path_pss, pss_dim,
+                            empty_record)
 from ..utils.tree import tree_map, tree_take, tree_where
 from . import gaussian as G
 from . import cache as cache_mod
@@ -48,6 +49,7 @@ class ChainState:
     cached_s: torch.Tensor       # [C] int32
     cached_t: torch.Tensor       # [C] int32
     cached_weight: torch.Tensor  # [C]
+    cached_rec: object = None    # PathRecord | None (cache sampling on)
 
 
 def init_chain_state(rec, contrib, screen_pos, ls, ss, score_sum, opts):
@@ -67,7 +69,9 @@ def init_chain_state(rec, contrib, screen_pos, ls, ss, score_sum, opts):
         gaussian_init=zb(), last_score_sum=torch.ones(C, device=dev),
         last_score=torch.ones(C, device=dev), adjacent_reject=zi(),
         queried=zb(), last_pss=z(Dm), cached_pss=z(Dm), cached_s=zi(),
-        cached_t=zi(), cached_weight=z())
+        cached_t=zi(), cached_weight=z(),
+        cached_rec=tree_map(torch.zeros_like, rec)
+        if opts.sample_from_global_cache else None)
 
 
 def _where_state(pred, a: ChainState, b: ChainState):
@@ -119,6 +123,173 @@ def large_step(scene, opts, state: ChainState, tape, u_pick):
                 screen=take(flat['screen_pos']), ls=prop_ls,
                 ss=take(flat['ss_score']), score_sum=score_sum,
                 all_flat=flat, ok=ok), a
+
+
+# ---------------------------------------------------------------------------
+# multiplexed and cache-seeded large steps
+# ---------------------------------------------------------------------------
+
+def _sample_length(length_dist, u_len):
+    """A path length from the bootstrap's length distribution."""
+    return length_dist.sample_discrete(u_len)[0].to(torch.int32)
+
+
+def _sample_st_split(opts, u_split, length):
+    """The (s, t) split of a multiplexed large step: t uniform in
+    [0, length] (bidirectional), or in {0, 1} (the unidirectional mode,
+    power-2 MIS paths). Returns (s, t)."""
+    if getattr(opts, 'bidirectional', True):
+        t = torch.minimum((u_split * (length + 1).to(torch.float32)
+                           ).to(torch.int32), length)
+    else:
+        t = torch.minimum((u_split * 2.0).to(torch.int32),
+                          torch.clamp(length, max=1))
+    t = torch.clamp(t, min=0)
+    return length - t + 1, t
+
+
+def _tech_inv_pmf(opts, length):
+    """1 / the probability of the (s, t) split of a path of this length."""
+    if getattr(opts, 'bidirectional', True):
+        return (length + 1).to(torch.float32)
+    return torch.full(length.shape, 2.0, device=length.device)
+
+
+def large_step_multiplexed(scene, opts, state: ChainState, length_dist, tape,
+                           u_len, u_split):
+    """Multiplexed large step: a path length from length_dist, a uniform
+    (s, t) split, that one technique generated (generate_subpath), accepted
+    with the technique-pmf ratio.
+
+    tape: Tape [C]; u_len, u_split: [C] uniforms. Returns (proposal dict,
+    a)."""
+    length = _sample_length(length_dist, u_len)
+    s, t = _sample_st_split(opts, u_split, length)
+    rec, res = trace.generate_subpath(scene, opts, tape, s, t)
+    ok = res['valid']
+    cur_len = state.rec.cam_depth + state.rec.lgt_depth - 1
+    pmf_prop = length_dist.pmf(length.long())
+    pmf_cur = length_dist.pmf(torch.clamp(cur_len, 0,
+                                          length_dist.count - 1).long())
+    a = torch.clamp(
+        (_tech_inv_pmf(opts, length) * res['ls']
+         / torch.clamp(pmf_prop, min=1e-20))
+        / torch.clamp(_tech_inv_pmf(opts, cur_len) * state.ls_score
+                      / torch.clamp(pmf_cur, min=1e-20), min=1e-20),
+        0.0, 1.0)
+    a = torch.where(state.valid, a, torch.ones_like(a))
+    a = torch.where(ok, a, torch.zeros_like(a))
+    return dict(rec=rec, contrib=res['contrib'], screen=res['screen'],
+                ls=res['ls'], ss=res['ss'], score_sum=res['ls'], ok=ok,
+                length=length), a
+
+
+def _row_ready(opts, cache, dim):
+    """Lanes whose PSS dimension is cached and whose row is full."""
+    ndim = cache.count.shape[0]
+    return ((dim >= opts.pss_min_length) & (dim <= opts.pss_max_length)
+            & (cache.count[torch.clamp(dim, 0, ndim - 1).long()]
+               >= cache.size))
+
+
+def large_step_cache(scene, opts, state: ChainState, length_dist, cache,
+                     tape, u_len, u_split, u_pick, u_samp, offset, noise):
+    """Cache-seeded large step: a path length from length_dist; where that
+    dimension's row is full, with probability cache_prob the proposal is a
+    stored path (drawn by path weight) replayed with a wrapped Gaussian
+    jitter, else the multiplexed uniform proposal. The acceptance uses the
+    MIS blend of the cache's KDE pdf and the uniform technique pdf.
+
+    tape: Tape [C] of the uniform branch; u_len, u_split, u_pick, u_samp:
+    [C] uniforms (length, split, branch pick, cache draw); offset: [C, Dm]
+    PSS jitter (N(0, cache_sig^2)); noise: the perturb jitters of the
+    replay (perturb_noise). The JAX package evaluates both branches on
+    every lane and selects; here each lane runs only its own branch, on
+    the gathered lanes, with the same per-lane results.
+    Returns (proposal dict with 'use_cache', a)."""
+    C = state.ls_score.shape[0]
+    D = opts.max_depth
+    Dm = 2 * D
+    dev = state.ls_score.device
+    length = _sample_length(length_dist, u_len)
+    prop_dim = 2 * length
+    prop_avail = _row_ready(opts, cache, prop_dim)
+    use_cache = prop_avail & (u_pick <= opts.cache_prob)
+
+    # each lane runs its own branch: gather, run, scatter back
+    prop = dict(rec=empty_record(C, D, dev),
+                contrib=torch.zeros((C, 3), device=dev),
+                screen=torch.zeros((C, 2), device=dev),
+                ls=torch.zeros(C, device=dev), ss=torch.zeros(C, device=dev),
+                ok=torch.zeros(C, dtype=torch.bool, device=dev))
+
+    def put(prop, idx, part):
+        def scat(full, p):
+            full = full.clone()
+            full[idx] = p.to(full.dtype)
+            return full
+        return tree_map(scat, prop, part)
+
+    # uniform multiplexed branch
+    uni = torch.nonzero(~use_cache)[:, 0]
+    if uni.numel():
+        s, t = _sample_st_split(opts, u_split[uni], length[uni])
+        r, res = trace.generate_subpath(
+            scene, opts, trace.Tape(tape.u[uni], D), s, t)
+        prop = put(prop, uni, dict(rec=r, contrib=res['contrib'],
+                                   screen=res['screen'], ls=res['ls'],
+                                   ss=res['ss'], ok=res['valid']))
+    # cache branch: a stored path, replayed with a wrapped Gaussian jitter
+    cch = torch.nonzero(use_cache)[:, 0]
+    if cch.numel():
+        _, _, _, rec_stored = cache_mod.sample_cache(cache, prop_dim[cch],
+                                                     u_samp[cch])
+        r, res = replay.replay_path(
+            scene, opts, rec_stored, offset[cch],
+            {k: v[cch] for k, v in noise.items()}, mode='perturb')
+        prop = put(prop, cch, dict(
+            rec=r, contrib=res['contrib'], screen=res['screen_pos'],
+            ls=res['ls_score'], ss=res['ss_score'],
+            ok=res['valid'] & (res['ss_score'] > 0.0)))
+
+    # MIS acceptance
+    cur_len = state.rec.cam_depth + state.rec.lgt_depth - 1
+    cur_dim = 2 * cur_len
+    cur_avail = _row_ready(opts, cache, cur_dim)
+    prop_jac = prop['ss'] / torch.clamp(prop['ls'], min=1e-20)
+    cur_jac = state.ss_score / torch.clamp(state.ls_score, min=1e-20)
+    prop_uni = 1.0 / (length + 1).to(torch.float32) * prop_jac
+    cur_uni = 1.0 / torch.clamp((cur_len + 1).to(torch.float32),
+                                min=1.0) * cur_jac
+
+    def kde(avail, dim, r):
+        """eval_pdf_cache on the lanes whose row is full, 0 elsewhere."""
+        out = torch.zeros(C, device=dev)
+        sel = torch.nonzero(avail)[:, 0]
+        if sel.numel():
+            r = tree_take(r, sel)
+            out[sel] = cache_mod.eval_pdf_cache(
+                cache, dim[sel], get_path_pss(r, Dm), r.cam_depth,
+                r.lgt_depth, opts)
+        return out
+
+    cp = opts.cache_prob
+    prop_pdf = torch.where(prop_avail, (1 - cp) * prop_uni
+                           + cp * kde(prop_avail, prop_dim, prop['rec']),
+                           prop_uni)
+    cur_pdf = torch.where(cur_avail, (1 - cp) * cur_uni
+                          + cp * kde(cur_avail, cur_dim, state.rec), cur_uni)
+    pmf_prop = length_dist.pmf(length.long())
+    pmf_cur = length_dist.pmf(torch.clamp(cur_len, 0,
+                                          length_dist.count - 1).long())
+    a = torch.clamp(
+        (prop['ss'] * cur_pdf * pmf_cur)
+        / torch.clamp(state.ss_score * prop_pdf * pmf_prop, min=1e-30),
+        0.0, 1.0)
+    a = torch.where(state.valid, a, torch.ones_like(a))
+    a = torch.where(prop['ok'], a, torch.zeros_like(a))
+    return dict(prop, score_sum=prop['ls'], length=length,
+                use_cache=use_cache), a
 
 
 # ---------------------------------------------------------------------------
@@ -354,6 +525,9 @@ def small_step_mala(scene, opts, state: ChainState, z, noise, cache,
         t=snap_sel(new_rec.lgt_depth, state.rec.lgt_depth, state.cached_t),
         weight=snap_sel(res['ls_score'], state.ls_score,
                         state.cached_weight))
+    if state.cached_rec is not None:
+        snap['rec'] = tree_map(snap_sel, new_rec, state.rec,
+                               state.cached_rec)
     return dict(rec=new_rec, contrib=res['contrib'], screen=res['screen_pos'],
                 ls=res['ls_score'], ss=res['ss_score'], ok=ok,
                 gauss_cur=gauss_cur, gauss_prop=gauss_prop, cur_ok=cur_ok,

@@ -81,6 +81,41 @@ def _sample_tri_from_row(row, u):
     return pos, normal
 
 
+def sample_tri(scene, tri_id, u):
+    """Uniform point on triangle tri_id at the sample parameters u [..., 2]
+    (the sqrt warp of _sample_tri_from_row). Returns (pos, normal)."""
+    from .intersect import gather_tri_row
+    return _sample_tri_from_row(gather_tri_row(scene, tri_id.long()), u)
+
+
+def get_sample_param(scene, tri_id, pos):
+    """Inverse of sample_tri: the (u0, u1) that sample `pos` on triangle
+    tri_id, through its barycentric coordinates."""
+    from .intersect import gather_tri_row
+    row = gather_tri_row(scene, tri_id.long())
+    e1, e2 = row['e1'], row['e2']
+    e0 = pos - row['p0']
+    d11 = vm.dot(e1, e1)
+    d12 = vm.dot(e1, e2)
+    d22 = vm.dot(e2, e2)
+    d01 = vm.dot(e0, e1)
+    d02 = vm.dot(e0, e2)
+    inv_denom = 1.0 / vm.clamp_abs(d11 * d22 - d12 * d12)
+    b1 = (d22 * d01 - d12 * d02) * inv_denom
+    b2 = (d11 * d02 - d12 * d01) * inv_denom
+    a = 1.0 - b1
+    u0 = (1.0 + vm.AD_EPS) - a * a
+    u1 = b2 / vm.clamp_abs(a)
+    return torch.stack([u0, u1], -1)
+
+
+def sample_tri_pdf(scene, tri_id):
+    """The area-sampling pdf of the light that owns tri_id: 1 / its total
+    area."""
+    light = torch.clamp(scene.tri_light[tri_id.long()], min=0).long()
+    return scene.light_inv_area[light]
+
+
 # ---------------------------------------------------------------------------
 # env map
 # ---------------------------------------------------------------------------

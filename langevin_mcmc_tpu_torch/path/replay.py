@@ -244,6 +244,23 @@ def replay_path(scene, opts, rec, offset, noise, mode='perturb', bake=None,
     term_d[:, 2] = 1.0
     term_hit = torch.zeros(C, dtype=torch.bool, device=dev)
 
+    # light-coordinate lanes: (s, 0) subpaths whose recorded last vertex
+    # lies on an area light sample that light's triangle at the (perturbed)
+    # parameters of vertex s - 3 instead of sampling the BSDF there. Gated
+    # s >= 4, as generation reparameterises only camera vertices c > 1.
+    lc_enabled = bool(opts.use_light_coordinate_sampling)
+    if lc_enabled:
+        tri_last = rec.cam_tri[lanes, c_idx]
+        tri_last_safe = torch.clamp(tri_last, min=0).long()
+        lc_lane = ((t == 0) & (s >= 4) & (tri_last >= 0)
+                   & (scene.tri_light[tri_last_safe] >= 0))
+        # the perturb replay's shadow ray to the sampled light point joins
+        # the terminals' occlusion query (t == 0 lanes shoot no other)
+        lc_fired = torch.zeros_like(lc_lane)
+        lc_org = torch.zeros((C, 3), device=dev)
+        lc_dir = term_d.clone()
+        lc_max = torch.zeros(C, device=dev)
+
     new_lgt_tri, new_cam_tri, collected = [], [], []
     # Both subpaths advance in lockstep; in perturb mode one intersection
     # query per step covers the concatenated [2C] light + camera rays.
@@ -308,7 +325,7 @@ def replay_path(scene, opts, rec, offset, noise, mode='perturb', bake=None,
         # the masking wheres
         l_rnd_in = _where(l_cont, rec.lgt_bsdf_rnd[:, l],
                           torch.full_like(rec.lgt_bsdf_rnd[:, l], 0.5))
-        l_new_d, l_new_state, _, _, l_b_ok, _, _ = tr.bsdf_sampling(
+        l_new_d, l_new_state, _, _, l_b_ok, _, _, _ = tr.bsdf_sampling(
             scene, opts, l_state, l_rnd_in, rec.lgt_bsdf_disc[:, l], l,
             adjoint=True, perturb=True, use_abs_in=rec.lgt_use_abs[:, l])
         lgt_ok = lgt_ok & torch.where(l_cont, l_b_ok, ones_b)
@@ -338,17 +355,39 @@ def replay_path(scene, opts, rec, offset, noise, mode='perturb', bake=None,
         term_hit = torch.where(is_last, hit, term_hit)
 
         cont = active & ~is_last
-        rnd_in = _where(cont, rec.cam_bsdf_rnd[:, c],
-                        torch.full_like(rec.cam_bsdf_rnd[:, c], 0.5))
-        new_d, new_state, _, _, b_ok, _, _ = tr.bsdf_sampling(
+        half = torch.full_like(rec.cam_bsdf_rnd[:, c], 0.5)
+        rnd_in = _where(cont, rec.cam_bsdf_rnd[:, c], half)
+        lc_now = None
+        if lc_enabled and 1 <= c <= D - 2:
+            lc_now = lc_lane & cont & (s - 3 == c)
+            lc_rnd_in = _where(lc_now, rec.cam_bsdf_rnd[:, c], half)
+            rnd_in = _where(lc_now, half, rnd_in)
+        new_d, new_state, _, _, b_ok, _, _, _ = tr.bsdf_sampling(
             scene, opts, state, rnd_in, rec.cam_bsdf_disc[:, c], c,
             adjoint=False, perturb=True, use_abs_in=rec.cam_use_abs[:, c])
+        thr_next = new_state.throughput
+        accp_next, acct_next = new_state.acc_prev, new_state.acc_this
+        ssj_next = new_state.ss_jacobian
+        if lc_now is not None:
+            lc = _light_coord_step(scene, state, tri_last_safe, lc_rnd_in)
+            new_d = _where(lc_now, lc['dir'], new_d)
+            b_ok = torch.where(lc_now, lc['valid'], b_ok)
+            thr_next = _where(lc_now, lc['throughput'], thr_next)
+            accp_next = torch.where(lc_now, lc['acc_prev'], accp_next)
+            acct_next = torch.where(lc_now, lc['acc_this'], acct_next)
+            ssj_next = torch.where(lc_now, lc['ss_jacobian'], ssj_next)
+            if not frozen:
+                lc_fired = lc_fired | lc_now
+                lc_org = _where(lc_now, state.pos, lc_org)
+                lc_dir = _where(lc_now, lc['dir'], lc_dir)
+                lc_max = torch.where(lc_now, (1.0 - vm.SHADOW_EPS)
+                                     * lc['dist'], lc_max)
         cam_ok = cam_ok & torch.where(cont, b_ok, ones_b)
-        throughput = _where(cont, new_state.throughput * rec.cam_rr[:, c, None],
+        throughput = _where(cont, thr_next * rec.cam_rr[:, c, None],
                             throughput)
-        acc_prev = _where(cont, new_state.acc_prev, acc_prev)
-        acc_this = _where(cont, new_state.acc_this, acc_this)
-        ss_jac = _where(cont, new_state.ss_jacobian, ss_jac)
+        acc_prev = _where(cont, accp_next, acc_prev)
+        acc_this = _where(cont, acct_next, acc_this)
+        ss_jac = _where(cont, ssj_next, ss_jac)
         org = _where(cont, state.pos, org)
         d = _where(cont, new_d, d)
         min_t, max_t = eps, inf
@@ -387,7 +426,8 @@ def replay_path(scene, opts, rec, offset, noise, mode='perturb', bake=None,
     cv_mask = has_cam & (t >= 2) & term_hit
 
     # one occlusion query for the connect-to-camera / NEE / connect-vertex
-    # terminals: the masks are exclusive by (s, t), one ray per lane
+    # terminals and the light-coordinate shadow rays: the masks are
+    # exclusive by (s, t), one ray per lane
     occ_term = None
     if not frozen:
         cam_org_v, _ = tr.camera_center_dir(scene.camera, time)
@@ -410,7 +450,13 @@ def replay_path(scene, opts, rec, offset, noise, mode='perturb', bake=None,
             torch.where(nee_mask, (1.0 - vm.SHADOW_EPS) * nee_out['dist'],
                         torch.where(cv_mask, (1.0 - vm.SHADOW_EPS) * d_cv,
                                     zero)))
+        if lc_enabled:
+            occ_org = _where(lc_fired, lc_org, occ_org)
+            occ_dir = _where(lc_fired, lc_dir, occ_dir)
+            occ_max = torch.where(lc_fired, lc_max, occ_max)
         occ_term = occluded_fn(occ_org, occ_dir, time, eps, occ_max)
+        if lc_enabled:
+            cam_ok = cam_ok & ~(lc_fired & occ_term)
 
     # terminal s == 1: connect the last light vertex to the camera
     cc_screen, cc_contrib, cc_ls, cc_ss, cc_mis, cc_ok = tr.connect_to_camera(
@@ -466,6 +512,34 @@ def replay_path(scene, opts, rec, offset, noise, mode='perturb', bake=None,
                              *[x[3] for x in collected]))
         return rec, result, bake_out
     return rec, result
+
+
+def _light_coord_step(scene, state, tri, u):
+    """Light-coordinate sampling at a camera vertex: the direction to the
+    point of light triangle `tri` at sample parameters u, with the BSDF
+    throughput, MIS accumulators and ssJacobian factor the BSDF sampling
+    would have given (ssJacobian * bsdfPdf / shapePdf, the generation's
+    lcJacobian / SamplePdf() convention, so a zero-offset replay gives the
+    generated ssScore). No occlusion here: the perturb replay's caller
+    shoots the shadow ray. Returns a dict."""
+    pos_l, n_l = light_ops.sample_tri(scene, tri, u)
+    to_l = pos_l - state.pos
+    d2 = torch.clamp(vm.length_squared(to_l), min=1e-12)
+    dist = torch.sqrt(d2)
+    dir_l = to_l / dist[..., None]
+    f, cos_l, pdf, rev_pdf = bsdf_ops.evaluate(state.mat, state.wi,
+                                               state.shading_n, dir_l)
+    safe_pdf = vm.clamp_abs(pdf)
+    return dict(
+        dir=dir_l, dist=dist, valid=torch.amax(torch.abs(f), -1) > 0.0,
+        throughput=state.throughput * f / safe_pdf[..., None],
+        acc_this=torch.clamp(MIS(cos_l / safe_pdf)
+                             * (state.acc_this * MIS(rev_pdf)
+                                + state.acc_prev), max=tr.ACC_MAX),
+        acc_prev=torch.clamp(MIS(1.0 / safe_pdf), max=tr.ACC_MAX),
+        ss_jacobian=state.ss_jacobian * (
+            torch.abs(vm.dot(dir_l, n_l)) / d2 * pdf
+            / light_ops.sample_tri_pdf(scene, tri)))
 
 
 def _acc_out(out, sel, contrib, ls, ss, mis):

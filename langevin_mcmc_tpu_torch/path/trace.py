@@ -6,10 +6,12 @@ pre-drawn uniform tape, so the same function serves bootstrap sampling,
 plain MC rendering and MCMC large steps. MIS bookkeeping follows the
 recursive accMISWPrev / accMISWThis scheme of the JAX package.
 
-Point, area and environment lights, every BSDF of the scene package;
-no light-coordinate sampling. A camera ray that escapes hits the env map
+Point, area and environment lights, every BSDF of the scene package,
+light-coordinate sampling. A camera ray that escapes hits the env map
 (when the scene has one); an env light's emission rays start on the disc
-of the x1000 bounding sphere.
+of the x1000 bounding sphere. generate_path_bidir gives every (s, t)
+technique of a path; generate_subpath one chosen technique per lane (the
+multiplexed large steps).
 """
 
 import dataclasses
@@ -17,11 +19,12 @@ import dataclasses
 import torch
 
 from ..utils import vecmath as vm
+from ..utils.tree import tree_map, tree_where
 from ..ops import bsdf as bsdf_ops
 from ..ops import lights as light_ops
 from ..ops.intersect import make_intersect_fns, hit_attrs_full
 from ..scene.camera import sample_primary, project_point, camera_center_dir
-from .records import Contribs, empty_record, empty_contribs
+from .records import Contribs, empty_record, empty_contribs, to_subpath
 
 MIS = vm.mis
 INF = float('inf')
@@ -155,9 +158,12 @@ def bsdf_sampling(scene, opts, state, bsdf_rnd, bsdf_disc, depth, adjoint,
     """BSDF sampling at a vertex.
 
     Returns (new_dir, new_state, contrib, use_abs, valid, rnd_canonical,
-    pdf): in absolute-parameter mode the recorded random numbers are the
-    spherical coordinates of the sampled direction, and perturb replay
-    re-derives the direction from them."""
+    pdf, lc_jac): in absolute-parameter mode the recorded random numbers
+    are the spherical coordinates of the sampled direction, and perturb
+    replay re-derives the direction from them. lc_jac is the sampling
+    density of the recorded parameters (1 / the spherical Jacobian in
+    absolute mode, else the BSDF pdf): light-coordinate sampling divides
+    it out of the next vertex's ssJacobian."""
     use_abs = bsdf_ops.roughness(state.mat) > opts.roughness_threshold
     if perturb:
         use_abs = use_abs_in
@@ -180,11 +186,15 @@ def bsdf_sampling(scene, opts, state, bsdf_rnd, bsdf_disc, depth, adjoint,
         rev_pdf = torch.where(use_abs, rp_a, rev_pdf_s)
         valid = torch.where(use_abs, valid_a, valid_s)
         ss_fac = torch.where(use_abs, jac_a * p_a, one)
+        lc_jac = torch.where(use_abs, 1.0 / torch.clamp(jac_a, min=1e-12),
+                             pdf_s)
         rnd_canonical = bsdf_rnd
     else:
         wo, contrib, cos_wo, pdf, rev_pdf, valid = (
             wo_s, contrib_s, cos_wo_s, pdf_s, rev_pdf_s, valid_s)
         ss_fac = torch.where(use_abs, jac_sph * pdf_s, one)
+        lc_jac = torch.where(use_abs, 1.0 / torch.clamp(jac_sph, min=1e-12),
+                             pdf_s)
         rnd_canonical = torch.where(ua, sph_s, bsdf_rnd)
 
     factor = shading_normal_correction(state.wi, state.shading_n,
@@ -199,7 +209,7 @@ def bsdf_sampling(scene, opts, state, bsdf_rnd, bsdf_disc, depth, adjoint,
         acc_prev=torch.clamp(MIS(1.0 / vm.clamp_abs(pdf)), max=ACC_MAX),
         throughput=state.throughput * contrib,
         ss_jacobian=state.ss_jacobian * ss_fac)
-    return wo, new_state, contrib, use_abs, valid, rnd_canonical, pdf
+    return wo, new_state, contrib, use_abs, valid, rnd_canonical, pdf, lc_jac
 
 
 # ---------------------------------------------------------------------------
@@ -207,11 +217,15 @@ def bsdf_sampling(scene, opts, state, bsdf_rnd, bsdf_disc, depth, adjoint,
 # ---------------------------------------------------------------------------
 
 def handle_hit_light(scene, first_vertex, hit_surface, hit_light_id, ray_dir,
-                     time, state, pack=None):
+                     time, state, pack=None, bidir_mis=True, ray_org=None,
+                     last_bsdf_pdf=None):
     """Emission where the camera subpath hits an area light or escapes to
     the env map, with bidir MIS (weight 1 for a directly visible light).
     pack: dict(emission, inv_area, pick_prob[, env: bake_env_dir pack]) of
-    gathered constants.
+    gathered constants. bidir_mis=False: the unidirectional power-2
+    balance against the pdf of the BSDF sampling that shot the ray
+    (generate_subpath with bidirectional=false); needs ray_org and
+    last_bsdf_pdf.
     Returns (contrib, ls, ss, mis_w, valid)."""
     lid = torch.clamp(hit_light_id, min=0)
     em, direct_pdf, emission_pdf = light_ops.area_emission(
@@ -234,9 +248,19 @@ def handle_hit_light(scene, first_vertex, hit_surface, hit_light_id, ray_dir,
     contrib = state.throughput * em
     direct_pdf = direct_pdf * pick
     emission_pdf = emission_pdf * pick
-    w_camera = (MIS(direct_pdf) * state.acc_prev
-                + MIS(emission_pdf) * state.acc_this)
-    mis_w = 1.0 / (1.0 + w_camera)
+    if bidir_mis:
+        w_camera = (MIS(direct_pdf) * state.acc_prev
+                    + MIS(emission_pdf) * state.acc_this)
+        mis_w = 1.0 / (1.0 + w_camera)
+    else:
+        # area pdf -> solid angle for surface hits
+        dist_sq = vm.distance_squared(ray_org, state.pos)
+        cos_theta = -vm.dot(ray_dir, state.shading_n)
+        dpdf_sa = torch.where(hit_surface,
+                              direct_pdf * dist_sq / vm.clamp_abs(cos_theta),
+                              direct_pdf)
+        mis_w = 1.0 / (1.0 + torch.square(dpdf_sa
+                                          / vm.clamp_abs(last_bsdf_pdf)))
     mis_w = torch.where(first_vertex, torch.ones_like(mis_w), mis_w)
     contrib = contrib * mis_w[..., None]
     score = vm.luminance(contrib)
@@ -245,8 +269,9 @@ def handle_hit_light(scene, first_vertex, hit_surface, hit_light_id, ray_dir,
 
 
 def direct_lighting(scene, opts, occluded_fn, state, time, light_id, lprim,
-                    nee_rnd, light_pick_prob):
-    """Next-event estimation with bidir MIS.
+                    nee_rnd, light_pick_prob, bidir_mis=True):
+    """Next-event estimation with bidir MIS; bidir_mis=False: the
+    unidirectional power-2 balance against the BSDF pdf.
     Returns (contrib, score, ss_score, mis_w, valid, lprim_id)."""
     out = light_ops.sample_direct(scene, light_id, lprim, nee_rnd,
                                   state.pos, time)
@@ -265,8 +290,14 @@ def direct_lighting(scene, opts, occluded_fn, state, time, light_id, lprim,
     b_contrib = b_contrib * factor[..., None]
     contrib = (state.throughput * b_contrib * out['contrib']
                / torch.clamp(light_pick_prob, min=1e-12)[..., None])
-    mis_w = _nee_mis(scene, light_id, out, light_pick_prob, bsdf_pdf,
-                     bsdf_rev_pdf, cos_to_light, state)
+    if bidir_mis:
+        mis_w = _nee_mis(scene, light_id, out, light_pick_prob, bsdf_pdf,
+                         bsdf_rev_pdf, cos_to_light, state)
+    else:
+        mis_w = 1.0 / (1.0 + torch.square(bsdf_pdf / vm.clamp_abs(
+            out['direct_pdf'] * light_pick_prob)))
+        mis_w = torch.where(light_ops.is_delta(scene, light_id),
+                            torch.ones_like(mis_w), mis_w)
     contrib = contrib * mis_w[..., None]
     score = vm.luminance(contrib)
     valid = valid & (score > 0.0)
@@ -406,6 +437,46 @@ def _surf(scene, org, d, hit_out, time, acc_prev, acc_this, throughput,
 
 
 # ---------------------------------------------------------------------------
+# light-coordinate sampling
+# ---------------------------------------------------------------------------
+
+def _light_coords(scene, opts, c, h_ok, hit, hit_light_id, tid, state, org,
+                  lc_jac_prev, h_ss):
+    """Light-coordinate reparameterisation of an (s, 0) technique whose
+    camera vertex c (c > 1) hits an area light: the previous vertex's BSDF
+    parameters become the light triangle's sample parameters of the hit
+    point, and ssJacobian changes measure by |cos| / dist^2 * lcJacobian /
+    SamplePdf(). (lcJacobian / SamplePdf() is the convention the replay
+    reproduces; it is mirrored as the JAX package has it.)
+    Returns (lc_ok [C], lc_param [C, 2], h_ss)."""
+    C = h_ok.shape[0]
+    if not opts.use_light_coordinate_sampling or c <= 1:
+        return (torch.zeros_like(h_ok),
+                torch.zeros((C, 2), device=h_ok.device), h_ss)
+    lc_ok = h_ok & hit & (hit_light_id >= 0)
+    tri = torch.clamp(tid, min=0)
+    lc_param = light_ops.get_sample_param(scene, tri, state.pos)
+    to_prev = state.pos - org
+    d2 = torch.clamp(vm.length_squared(to_prev), min=1e-12)
+    to_prev = to_prev / torch.sqrt(d2)[..., None]
+    lc_factor = (torch.abs(vm.dot(to_prev, state.shading_n) / d2)
+                 * lc_jac_prev / light_ops.sample_tri_pdf(scene, tri))
+    return lc_ok, lc_param, torch.where(lc_ok, h_ss * lc_factor, h_ss)
+
+
+def _shift_light_coords(opts, cam_bsdf_rnd, lc_ok, lc_param):
+    """Write the light-coordinate parameters found at camera vertex c into
+    the BSDF parameters of vertex c - 1. All [C, D(, 2)]."""
+    if not opts.use_light_coordinate_sampling:
+        return cam_bsdf_rnd
+    shift_ok = torch.zeros_like(lc_ok)
+    shift_ok[:, :-1] = lc_ok[:, 1:]
+    shift_param = torch.zeros_like(lc_param)
+    shift_param[:, :-1] = lc_param[:, 1:]
+    return torch.where(shift_ok[..., None], shift_param, cam_bsdf_rnd)
+
+
+# ---------------------------------------------------------------------------
 # bidirectional generation
 # ---------------------------------------------------------------------------
 
@@ -476,7 +547,7 @@ def generate_path_bidir(scene, opts, tape: Tape, pixel=None, min_depth=None,
             connect_to_camera(scene, opts, occluded_fn, time, state, spc)
         cc_ok = cc_ok & exists & (l + 2 >= md) & (l + 2 <= mx)
 
-        new_d, new_state, b_contrib, use_abs, b_ok, rnd_canon, _ = \
+        new_d, new_state, b_contrib, use_abs, b_ok, rnd_canon, _, _ = \
             bsdf_sampling(scene, opts, state, vdata['bsdf'], vdata['disc'], l,
                           adjoint=True)
         rr_prob = russian_roulette_prob(l, b_contrib)
@@ -504,7 +575,6 @@ def generate_path_bidir(scene, opts, tape: Tape, pixel=None, min_depth=None,
         lgt_rr=stackl('rr_weight'))
 
     # all D light states stacked [D*C] for the flattened vertex connections
-    from ..utils.tree import tree_map
     lgt_flat = tree_map(lambda *xs: torch.cat(xs, 0),
                         *[y['state'] for y in lgt])
     lgt_exists_flat = torch.cat([y['exists'] for y in lgt], 0)
@@ -527,6 +597,7 @@ def generate_path_bidir(scene, opts, tape: Tape, pixel=None, min_depth=None,
     acc_this = torch.zeros(C, device=dev)
     throughput = torch.ones((C, 3), device=dev)
     ss_jac = torch.ones(C, device=dev)
+    lc_jac_prev = torch.ones(C, device=dev)
     l_len = torch.arange(D, device=dev).repeat_interleave(C)
     cam = []
     for c in range(D):
@@ -551,6 +622,9 @@ def generate_path_bidir(scene, opts, tape: Tape, pixel=None, min_depth=None,
             scene, torch.full((C,), c == 0, device=dev), hit, hit_light_id, d,
             time, state)
         h_ok = h_ok & hit_light & (c + 1 >= md)
+        lc_ok, lc_param, h_ss = _light_coords(scene, opts, c, h_ok, hit,
+                                              hit_light_id, tid, state, org,
+                                              lc_jac_prev, h_ss)
         if has_env:
             # the env pixel of the path's env hit, frozen for the replay
             env_pix = light_ops.env_emission(scene, d, time)[0]
@@ -582,13 +656,14 @@ def generate_path_bidir(scene, opts, tape: Tape, pixel=None, min_depth=None,
         v_ok = v_ok & pre_ok
         unfl = lambda x: x.reshape((D, C) + x.shape[1:]).transpose(0, 1)
 
-        new_d, new_state, b_contrib, use_abs, b_ok, rnd_canon, _ = \
+        new_d, new_state, b_contrib, use_abs, b_ok, rnd_canon, _, lc_jac = \
             bsdf_sampling(scene, opts, state, vdata['bsdf'], vdata['disc'],
                           c, adjoint=False)
         rr_prob = russian_roulette_prob(c, b_contrib)
         rr_ok = vdata['rr'] <= rr_prob
         rr_weight = 1.0 / torch.clamp(rr_prob, min=1e-12)
         cam.append(dict(
+            lc_ok=lc_ok, lc_param=lc_param,
             tri=torch.where(exists, tid, torch.full_like(tid, -1)),
             disc=vdata['disc'], rnd_canon=rnd_canon, use_abs=use_abs,
             rr_weight=torch.where(rr_ok, rr_weight, torch.ones_like(rr_weight)),
@@ -606,12 +681,15 @@ def generate_path_bidir(scene, opts, tape: Tape, pixel=None, min_depth=None,
         acc_prev, acc_this = new_state.acc_prev, new_state.acc_this
         throughput = new_state.throughput * rr_weight[..., None]
         ss_jac = new_state.ss_jacobian
+        lc_jac_prev = lc_jac
         min_t, max_t = eps, inf
 
     stackc = lambda k: torch.stack([y[k] for y in cam], 1)
     cam_alive = stackc('cam_alive')
     rec = dataclasses.replace(
-        rec, cam_tri=stackc('tri'), cam_bsdf_rnd=stackc('rnd_canon'),
+        rec, cam_tri=stackc('tri'),
+        cam_bsdf_rnd=_shift_light_coords(opts, stackc('rnd_canon'),
+                                         stackc('lc_ok'), stackc('lc_param')),
         cam_bsdf_disc=stackc('disc'), cam_use_abs=stackc('use_abs'),
         cam_rr=stackc('rr_weight'), cam_nee_light=stackc('nee_light'),
         cam_nee_lprim=stackc('nee_lprim'), cam_nee_rnd=stackc('nee_rnd'),
@@ -635,6 +713,195 @@ def generate_path_bidir(scene, opts, tape: Tape, pixel=None, min_depth=None,
         l_ls_score=stackl('cc_ls'), l_ss_score=stackl('cc_ss'),
         l_mis_weight=stackl('cc_mis'))
     return rec, con, lgt_alive, cam_alive
+
+
+# ---------------------------------------------------------------------------
+# fixed-(s, t) generation
+# ---------------------------------------------------------------------------
+
+def generate_subpath(scene, opts, tape: Tape, s, t, pixel=None):
+    """Generate a wavefront of fixed-technique paths: lane i walks exactly
+    s[i] camera vertices and t[i] light vertices and gives the one (s, t)
+    contribution (the multiplexed large steps). Unlike generate_path_bidir:
+    no Russian roulette, no min/max-depth filter, one contribution per
+    lane. With opts.bidirectional false the MIS is the unidirectional
+    power-2 balance (t is then 0 or 1).
+
+    s, t: [C] int with s >= 1, t >= 0, s + t - 1 <= max_depth.
+    Returns (PathRecord tagged with (s, t), dict(screen, contrib, ls, ss,
+    mis, valid))."""
+    D = opts.max_depth
+    C = tape.u.shape[0]
+    dev = tape.u.device
+    intersect_fn, occluded_fn = make_intersect_fns(scene)
+    spc = screen_pixel_count(scene)
+    s = torch.as_tensor(s, dtype=torch.int32, device=dev)
+    t = torch.as_tensor(t, dtype=torch.int32, device=dev)
+    ones_b = torch.ones(C, dtype=torch.bool, device=dev)
+    eps = torch.full((C,), vm.ISECT_EPS, device=dev)
+    inf = torch.full((C,), INF, device=dev)
+    bidir_mis = bool(getattr(opts, 'bidirectional', True))
+
+    time = tape.time
+    rec = dataclasses.replace(empty_record(C, D, dev), time=time)
+
+    # ---- light subpath: t >= 2 lanes walk t - 1 vertices ----
+    em, emission_pdf, throughput, finite_light, acc_prev, acc_this, rec = \
+        _light_start(scene, tape, rec)
+    org, d = em['org'], em['dir']
+    alive = (t >= 2) & (emission_pdf > 0.0)
+    ss_jac = torch.ones(C, device=dev)
+    lgt = []
+    cc = None        # connect-to-camera at the terminal light vertex
+    lterm = None     # terminal light state, for the vertex connection
+    lterm_exists = torch.zeros_like(ones_b)
+    for l in range(D):
+        vdata = tape.lgt_vertex(l)
+        hit_out = intersect_fn(org, d, time, eps, inf)
+        hit, tid = hit_out[0], hit_out[1]
+        exists = alive & hit
+        state, _ = _surf(scene, org, d, hit_out, time, acc_prev, acc_this,
+                         throughput, ss_jac,
+                         torch.where(exists, tid, torch.full_like(tid, -1)))
+        state = convert_mis(state, org, d, finite_light if l == 0 else ones_b)
+        is_term = t - 2 == l
+        cc_l = connect_to_camera(scene, opts, occluded_fn, time, state, spc)
+        cc_ok = cc_l[5] & exists & is_term & (s == 1)
+        cc_l = cc_l[:5] + (cc_ok,)
+        cc = cc_l if cc is None else tuple(
+            _where_lane(is_term, a, b) for a, b in zip(cc_l, cc))
+        lterm = state if lterm is None else tree_where(is_term, state, lterm)
+        lterm_exists = torch.where(is_term, exists, lterm_exists)
+
+        new_d, new_state, _, use_abs, b_ok, rnd_canon, _, _ = bsdf_sampling(
+            scene, opts, state, vdata['bsdf'], vdata['disc'], l, adjoint=True)
+        extend = exists & (l < t - 2)
+        lgt.append(dict(
+            tri=state.tri, disc=vdata['disc'],
+            rnd_canon=_masked(extend, rnd_canon), use_abs=use_abs & extend))
+        alive = extend & b_ok
+        org, d = state.pos, new_d
+        acc_prev, acc_this = new_state.acc_prev, new_state.acc_this
+        throughput, ss_jac = new_state.throughput, new_state.ss_jacobian
+
+    stackl = lambda k: torch.stack([y[k] for y in lgt], 1)
+    rec = dataclasses.replace(
+        rec, lgt_tri=stackl('tri'), lgt_bsdf_rnd=stackl('rnd_canon'),
+        lgt_bsdf_disc=stackl('disc'), lgt_use_abs=stackl('use_abs'))
+
+    # s == 1 lanes: the connect-to-camera at light vertex t - 2
+    cc_screen, cc_contrib, cc_ls, cc_ss, cc_mis, cc_ok = cc
+    s1 = (s == 1) & cc_ok
+    res = dict(screen=_masked(s1, cc_screen), contrib=_masked(s1, cc_contrib),
+               ls=_masked(s1, cc_ls), ss=_masked(s1, cc_ss),
+               mis=_masked(s1, cc_mis), valid=s1,
+               env=torch.full((C,), -1, dtype=torch.int32, device=dev))
+
+    # ---- camera subpath: s >= 2 lanes walk s - 1 vertices ----
+    if pixel is None:
+        screen = tape.screen
+    else:
+        screen = (pixel.to(torch.float32) + tape.screen) / torch.tensor(
+            [scene.width, scene.height], dtype=torch.float32, device=dev)
+    rec = dataclasses.replace(rec, screen_pos=screen)
+    org, d, min_t, max_t = sample_primary(scene.camera, screen, time)
+    _, cam_center = camera_center_dir(scene.camera, time)
+    alive = s >= 2
+    has_env = scene.env_light_id >= 0
+    acc_prev = MIS(spc / camera_pdf_w(scene, cam_center, d))
+    acc_this = torch.zeros(C, device=dev)
+    throughput = torch.ones((C, 3), device=dev)
+    ss_jac = torch.ones(C, device=dev)
+    lc_jac_prev = torch.ones(C, device=dev)
+    last_pdf = torch.zeros(C, device=dev)
+    cam = []
+    for c in range(D):
+        vdata = tape.cam_vertex(c)
+        hit_out = intersect_fn(org, d, time, min_t, max_t)
+        hit, tid = hit_out[0], hit_out[1]
+        state, light_id = _surf(scene, org, d, hit_out, time, acc_prev,
+                                acc_this, throughput, ss_jac, tid)
+        if bidir_mis:
+            st_mis = convert_mis(state, org, d, ones_b)
+            state = dataclasses.replace(
+                state, acc_prev=torch.where(hit, st_mis.acc_prev,
+                                            state.acc_prev),
+                acc_this=torch.where(hit, st_mis.acc_this, state.acc_this))
+        terminal = alive & (s - 2 == c)
+
+        # t == 0: the terminal vertex hits a light or escapes to the env map
+        hit_light_id = torch.where(hit, light_id, torch.full_like(light_id, -1))
+        is_env_hit = ~hit & terminal & has_env
+        hit_light = (hit & (hit_light_id >= 0)) | is_env_hit
+        h_contrib, h_ls, h_ss, h_mis, h_ok = handle_hit_light(
+            scene, torch.full((C,), c == 0, device=dev), hit, hit_light_id, d,
+            time, state, bidir_mis=bidir_mis, ray_org=org,
+            last_bsdf_pdf=last_pdf)
+        h_ok = h_ok & terminal & (t == 0) & hit_light
+        lc_ok, lc_param, h_ss = _light_coords(scene, opts, c, h_ok, hit,
+                                              hit_light_id, tid, state, org,
+                                              lc_jac_prev, h_ss)
+        if has_env:
+            env_pix = light_ops.env_emission(scene, d, time)[0]
+            res['env'] = torch.where(is_env_hit & h_ok, env_pix, res['env'])
+        exists = alive & hit
+
+        # t == 1: NEE at the terminal vertex
+        nee_light, nee_prob = light_ops.pick_light(scene, vdata['nee_pick'])
+        nee_lprim0 = light_ops.sample_discrete(scene, nee_light,
+                                               vdata['nee_disc'])
+        n_contrib, n_ls, n_ss, n_mis, n_ok, n_lprim = direct_lighting(
+            scene, opts, occluded_fn, state, time, nee_light, nee_lprim0,
+            vdata['nee_rnd'], nee_prob, bidir_mis=bidir_mis)
+        n_ok = n_ok & exists & terminal & (t == 1)
+
+        # t >= 2: connect to the terminal light vertex
+        v_contrib, v_ls, v_ss, v_mis, v_ok = connect_vertex(
+            scene, opts, occluded_fn, time, lterm, state)
+        v_ok = v_ok & exists & terminal & (t >= 2) & lterm_exists
+
+        for ok, vals in ((v_ok, (v_contrib, v_ls, v_ss, v_mis)),
+                         (n_ok, (n_contrib, n_ls, n_ss, n_mis)),
+                         (h_ok, (h_contrib, h_ls, h_ss, h_mis))):
+            for k, v in zip(('contrib', 'ls', 'ss', 'mis'), vals):
+                res[k] = _where_lane(ok, v, res[k])
+        any_ok = h_ok | n_ok | v_ok
+        res['screen'] = _where_lane(any_ok, screen, res['screen'])
+        res['valid'] = res['valid'] | any_ok
+
+        new_d, new_state, _, use_abs, b_ok, rnd_canon, pdf, lc_jac = \
+            bsdf_sampling(scene, opts, state, vdata['bsdf'], vdata['disc'],
+                          c, adjoint=False)
+        extend = exists & (c < s - 2)
+        cam.append(dict(
+            tri=torch.where(exists, tid, torch.full_like(tid, -1)),
+            disc=vdata['disc'], rnd_canon=_masked(extend, rnd_canon),
+            use_abs=use_abs & extend, lc_ok=lc_ok, lc_param=lc_param,
+            nee_light=nee_light, nee_lprim=n_lprim.to(torch.int32),
+            nee_rnd=vdata['nee_rnd']))
+        alive = extend & b_ok
+        org, d = state.pos, new_d
+        acc_prev, acc_this = new_state.acc_prev, new_state.acc_this
+        throughput, ss_jac = new_state.throughput, new_state.ss_jacobian
+        lc_jac_prev, last_pdf = lc_jac, pdf
+        min_t, max_t = eps, inf
+
+    stackc = lambda k: torch.stack([y[k] for y in cam], 1)
+    rec = dataclasses.replace(
+        rec, cam_tri=stackc('tri'),
+        cam_bsdf_rnd=_shift_light_coords(opts, stackc('rnd_canon'),
+                                         stackc('lc_ok'), stackc('lc_param')),
+        cam_bsdf_disc=stackc('disc'), cam_use_abs=stackc('use_abs'),
+        cam_nee_light=stackc('nee_light'), cam_nee_lprim=stackc('nee_lprim'),
+        cam_nee_rnd=stackc('nee_rnd'), env_lprim=res['env'])
+    rec = to_subpath(rec, s, t)
+    return rec, dict(screen=res['screen'], contrib=res['contrib'],
+                     ls=res['ls'], ss=res['ss'], mis=res['mis'],
+                     valid=res['valid'] & (res['ls'] > 0.0))
+
+
+def _where_lane(ok, a, b):
+    return torch.where(ok.reshape(ok.shape + (1,) * (a.ndim - ok.ndim)), a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -758,7 +1025,7 @@ def generate_path_uni(scene, opts, tape: Tape, pixel=None, min_depth=None,
             con.ss_score[:, c, 1] = _masked(n_ok, n_score * ss_jac)
             con.mis_weight[:, c, 1] = _masked(n_ok, n_mis)
 
-        new_d, new_state, b_contrib, use_abs, b_ok, rnd_canon, pdf = \
+        new_d, new_state, b_contrib, use_abs, b_ok, rnd_canon, pdf, _ = \
             bsdf_sampling(scene, opts, state, vdata['bsdf'], vdata['disc'], c,
                           adjoint=False)
         rr_prob = russian_roulette_prob(c, b_contrib)

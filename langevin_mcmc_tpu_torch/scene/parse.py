@@ -5,8 +5,8 @@ Supports the ported configuration: perspective sensor + hdrfilm, static
 ``roughdielectric`` (optionally ``twosided``) BSDFs, ``bitmap`` textures
 (inline or referenced by id), ``point`` / ``envmap`` / ``area`` emitters
 and the ``<dpt>`` options block. Motion (animated shapes, camera or env
-map) and the samplers not ported yet raise ``NotImplementedError`` naming
-the feature.
+map) and the isotropic-only small step (an MCMC block with neither MALA
+nor H2MC) raise ``NotImplementedError`` naming the feature.
 """
 
 import os
@@ -184,12 +184,6 @@ def _parse_shape_transform(node):
     return m
 
 
-_UNPORTED_OPTIONS = {
-    'largestepmultiplexed': 'multiplexed large steps',
-    'samplecache': 'cache-seeded large steps',
-    'uselightcoordinatesampling': 'light-coordinate sampling'}
-
-
 def _parse_options(node):
     keymap = {
         'integrator': ('integrator', str), 'spp': ('spp', int),
@@ -204,19 +198,17 @@ def _parse_options(node):
         'uniformmixprob': ('uniform_mixing_probability', float),
         'numchains': ('num_chains', int), 'seedoffset': ('seed_offset', int),
         'reportintervalspp': ('report_interval_spp', int),
+        'uselightcoordinatesampling': ('use_light_coordinate_sampling', None),
+        'largestepmultiplexed': ('large_step_multiplexed', None),
         'mala': ('mala', None), 'h2mc': ('h2mc', None),
         'mala-stepsize': ('mala_stepsize', float),
         'mala-gn': ('mala_gn', float),
+        'samplecache': ('sample_from_global_cache', None),
     }
     kw = {}
     for child in node:
         name = child.get('name')
         val = child.get('value')
-        if name in _UNPORTED_OPTIONS:
-            if val == 'true':
-                raise NotImplementedError(
-                    f'{_UNPORTED_OPTIONS[name]} is not ported yet')
-            continue
         if name not in keymap:
             continue
         field, conv = keymap[name]

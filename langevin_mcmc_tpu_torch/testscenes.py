@@ -12,10 +12,13 @@ read the files.
   sky and rays leaving the torus miss every triangle.
 
     python -m langevin_mcmc_tpu_torch.testscenes out_dir [--scene open]
-        [--small]
+        [--small] [--kernel mala|h2mc] [--integrator mcmc|mc]
+        [--large-step plain|multiplexed|cache] [--light-coords]
 
 --small writes the CPU-sized form: the small torus, small images, a 64x48
-film, 1,024 chains and 4,096 bootstrap samples.
+film, 1,024 chains and 4,096 bootstrap samples. --large-step multiplexed
+sets largestepmultiplexed; cache sets it and samplecache (cache-seeded
+large steps, with MALA); --light-coords sets uselightcoordinatesampling.
 """
 
 import argparse
@@ -87,7 +90,17 @@ _LIGHT = _quad((-1.5, -1.5, 5.9), (-1.5, 1.5, 5.9), (1.5, 1.5, 5.9),
                (1.5, -1.5, 5.9))
 
 
-def _dpt(integrator, max_depth, num_init_samples, kernel, num_chains):
+LARGE_STEPS = ('plain', 'multiplexed', 'cache')
+
+
+def _dpt(integrator, max_depth, num_init_samples, kernel, num_chains,
+         large_step='plain', light_coords=False):
+    flags = ''.join(
+        f'\n        <boolean name="{name}" value="true"/>'
+        for name, on in (('largestepmultiplexed', large_step != 'plain'),
+                         ('samplecache', large_step == 'cache'),
+                         ('uselightcoordinatesampling', light_coords))
+        if on)
     return f'''    <dpt>
         <string  name="integrator" value="{integrator}"/>
         <integer name="mindepth" value="-1"/>
@@ -97,7 +110,7 @@ def _dpt(integrator, max_depth, num_init_samples, kernel, num_chains):
         <integer name="numchains" value="{num_chains}"/>
         <integer name="numinitsamples" value="{num_init_samples}"/>
         <integer name="directspp" value="1"/>
-        <boolean name="{kernel}" value="true"/>
+        <boolean name="{kernel}" value="true"/>{flags}
     </dpt>'''
 
 
@@ -120,20 +133,24 @@ def _sensor(origin, target, width, height, name):
 
 def write_scene(out_dir, small=False, width=1024, height=768, max_depth=8,
                 num_init_samples=300000, kernel='mala', integrator='mcmc',
-                scene='box', num_chains=65536):
+                scene='box', num_chains=65536, large_step='plain',
+                light_coords=False):
     """Write the scene's files and scene.xml into out_dir; returns the XML
     path. scene: 'box' or 'open' (see the module docstring). small=True
     gives a ~1,000-triangle torus (and small images) for tests. The <dpt>
     block holds the flagship's spp 4 and directspp 1, num_chains (65,536
-    for the flagship), the integrator ('mcmc' or 'mc') and the small-step
-    kernel of 'mcmc' ('mala' or 'h2mc')."""
+    for the flagship), the integrator ('mcmc' or 'mc'), the small-step
+    kernel of 'mcmc' ('mala' or 'h2mc'), the large step ('plain',
+    'multiplexed' or 'cache': multiplexed and cache-seeded) and
+    light-coordinate sampling."""
     if kernel not in ('mala', 'h2mc') or integrator not in ('mcmc', 'mc'):
         raise ValueError(f'kernel {kernel!r}, integrator {integrator!r}')
-    if scene not in ('box', 'open'):
-        raise ValueError(f'scene {scene!r}')
+    if scene not in ('box', 'open') or large_step not in LARGE_STEPS:
+        raise ValueError(f'scene {scene!r}, large step {large_step!r}')
     os.makedirs(out_dir, exist_ok=True)
     nu, nv = SMALL_TORUS_SEGMENTS if small else TORUS_SEGMENTS
-    dpt = _dpt(integrator, max_depth, num_init_samples, kernel, num_chains)
+    dpt = _dpt(integrator, max_depth, num_init_samples, kernel, num_chains,
+               large_step, light_coords)
     if scene == 'open':
         return _write_open(out_dir, small, (nu, nv), width, height, dpt)
     _write_obj(os.path.join(out_dir, 'torus.obj'), *torus_mesh(nu, nv))
@@ -373,8 +390,12 @@ if __name__ == '__main__':
     ap.add_argument('--small', action='store_true')
     ap.add_argument('--kernel', choices=('mala', 'h2mc'), default='mala')
     ap.add_argument('--integrator', choices=('mcmc', 'mc'), default='mcmc')
+    ap.add_argument('--large-step', choices=LARGE_STEPS, default='plain')
+    ap.add_argument('--light-coords', action='store_true')
     args = ap.parse_args()
     cut = dict(width=64, height=48, num_chains=1024,
                num_init_samples=4096) if args.small else {}
     print(write_scene(args.out_dir, small=args.small, kernel=args.kernel,
-                      integrator=args.integrator, scene=args.scene, **cut))
+                      integrator=args.integrator, scene=args.scene,
+                      large_step=args.large_step,
+                      light_coords=args.light_coords, **cut))

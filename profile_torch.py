@@ -1,10 +1,21 @@
 """Where the port's MCMC chain step spends its time on a GPU.
 
-    python3 profile_torch.py
+    python3 profile_torch.py [--time-only] [CONFIG ...]
 
-Runs each scene of chip_smoke.py's MALA renders (the flagship box, path A,
-and the open scene, path D: 1024x768, maxdepth 8, 65,536 chains) with a
-65,536-sample bootstrap, warms the chain step up, then:
+CONFIG (no CONFIG: box, open and cache):
+
+  box         the flagship box, path A of chip_smoke.py;
+  open        the open scene, path D;
+  cache       path E, the box with multiplexed and cache-seeded large
+              steps and light coordinates, its cache rows pre-filled from
+              the seed states as in chip_smoke.py's cache phase, so the
+              cache branch runs;
+  cache_cold  path E's configuration without the pre-fill;
+  mmlt        the box with multiplexed large steps;
+  mmlt_lc     the box with multiplexed large steps and light coordinates.
+Each is MALA at 1024x768, maxdepth 8, 65,536 chains, with a 65,536-sample
+bootstrap. The chain step is warmed up and timed over 3 steps (no syncs);
+with --time-only that is all, else:
   1. times each stage of the step inclusively over 3 steps (host clock
      with a device sync around every call of the wrapped functions). A
      stage is wrapped by replacing its module attribute, so the timer sees
@@ -43,16 +54,29 @@ def main():
                            '--format=csv,noheader'], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print(f'card: {card}', flush=True)
-    for name in ('box', 'open'):
+    cache = dict(scene='box', large_step='cache', light_coords=True)
+    configs = {'box': dict(scene='box'), 'open': dict(scene='open'),
+               'cache': cache, 'cache_cold': cache,
+               'mmlt': dict(scene='box', large_step='multiplexed'),
+               'mmlt_lc': dict(scene='box', large_step='multiplexed',
+                               light_coords=True)}
+    args = sys.argv[1:]
+    time_only = '--time-only' in args
+    chosen = [a for a in args if a != '--time-only'] or ['box', 'open',
+                                                         'cache']
+    for name in chosen:
         print(f'scene: {name}', flush=True)
         xml = chip_smoke.write_flagship(
             os.path.join(HERE, 'smoke_out', 'profile', name),
-            num_init_samples=INIT_SAMPLES, scene=name)
-        profile_scene(xml, name, card)
+            num_init_samples=INIT_SAMPLES, **configs[name])
+        profile_scene(xml, name, card, prefill=name == 'cache',
+                      time_only=time_only)
 
 
-def profile_scene(xml, label, card):
-    """The stage and kernel breakdowns of one scene's MALA chain step."""
+def profile_scene(xml, label, card, prefill=False, time_only=False):
+    """The stage and kernel breakdowns of one configuration's MALA chain
+    step (prefill: the cache rows pre-filled from the seed states;
+    time_only: the unsynchronised step time alone)."""
     from langevin_mcmc_tpu_torch.scene.parse import parse_scene
     from langevin_mcmc_tpu_torch.integrators import mlt
     from langevin_mcmc_tpu_torch.mcmc import chain, cache
@@ -63,12 +87,15 @@ def profile_scene(xml, label, card):
     scene, opts, _ = parse_scene(xml, device='cuda')
     gen = torch.Generator(device='cuda').manual_seed(0)
     with torch.no_grad():
-        b, _, banked = mlt.bootstrap(scene, opts, gen,
-                                     chunk=chip_smoke.CHUNK)
+        b, length_dist, banked = mlt.bootstrap(scene, opts, gen,
+                                               chunk=chip_smoke.CHUNK)
         init = banked
         banked = mlt.attach_cache(banked, opts)
+        if prefill:
+            banked = chip_smoke.prefill_cache(banked, opts)
         step = mlt.make_mlt_step(scene, opts, b,
-                                 opts.large_step_probability)
+                                 opts.large_step_probability,
+                                 length_dist=length_dist)
         frame = torch.zeros((scene.height, scene.width, 3), device='cuda')
         for _ in range(2):
             banked = step(gen, banked, frame, init)
@@ -79,14 +106,21 @@ def profile_scene(xml, label, card):
         torch.cuda.synchronize()
         plain_ms = 1e3 * (time.perf_counter() - t0) / STEPS
         print(f'step: {plain_ms:.1f} ms (no syncs, no profiler)')
+        if time_only:
+            print(json.dumps(dict(card=card, scene=label, steps=STEPS,
+                                  step_ms=plain_ms)), flush=True)
+            return
 
         # 1. inclusive stage times (synchronised)
         totals = collections.defaultdict(float)
         calls = collections.Counter()
-        stages = [(chain, 'large_step'), (chain, 'small_step_mala'),
+        stages = [(chain, 'large_step'), (chain, 'large_step_multiplexed'),
+                  (chain, 'large_step_cache'), (chain, 'small_step_mala'),
                   (chain, '_perturb_and_grad'), (replay, 'replay_path'),
                   (replay, 'path_grad'), (replay, 'bake_frozen'),
-                  (trace, 'generate_path_bidir'), (cache, 'query_knn'),
+                  (trace, 'generate_path_bidir'),
+                  (trace, 'generate_subpath'), (cache, 'query_knn'),
+                  (cache, 'eval_pdf_cache'), (cache, 'sample_cache'),
                   (cache, 'push_batch'), (chunkwalk, 'sort_rays'),
                   (chunkwalk, 'walk_staged'), (chunkwalk, 'walk_resident'),
                   (mlt, 'splat')]

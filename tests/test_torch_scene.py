@@ -87,7 +87,8 @@ def test_generated_scene_sizes(tmp_path):
 
 
 _CUT = {
-    # ported since: these four now parse (see test_cut_features_raise)
+    # the features of _PORTED are ported since and now parse (see
+    # test_cut_features_raise)
     'roughdielectric BSDF': '<shape type="obj"><string name="filename" '
     'value="f.obj"/><bsdf type="roughdielectric"/></shape>',
     'bitmap textures': '<texture type="bitmap" id="t"><string '
@@ -100,13 +101,14 @@ _CUT = {
     # H2MC is ported; an MCMC block with neither MALA nor H2MC (the
     # isotropic-only small step) is what is still cut
     'H2MC': '<dpt><string name="integrator" value="mcmc"/></dpt>',
-    'multiplexed large steps': '<dpt><boolean name="largestepmultiplexed" '
-    'value="true"/></dpt>',
-    'light-coordinate sampling': '<dpt><boolean '
-    'name="uselightcoordinatesampling" value="true"/></dpt>',
+    'multiplexed large steps': '<dpt><boolean name="mala" value="true"/>'
+    '<boolean name="largestepmultiplexed" value="true"/></dpt>',
+    'light-coordinate sampling': '<dpt><boolean name="mala" value="true"/>'
+    '<boolean name="uselightcoordinatesampling" value="true"/></dpt>',
 }
 _PORTED = ('roughdielectric BSDF', 'bitmap textures', 'point emitters',
-           'envmap emitters')
+           'envmap emitters', 'multiplexed large steps',
+           'light-coordinate sampling')
 
 
 @pytest.mark.parametrize('feature', sorted(_CUT))

@@ -198,6 +198,8 @@ _MALA = '<dpt><boolean name="mala" value="true"/>{}</dpt>'
      'isotropic-only small steps'),
 ])
 def test_unported_features_still_raise(open_xml, tmp_path, case, words):
+    """A feature still cut raises naming it; the three <dpt> booleans
+    ported since (_PORTED_SINCE) parse and set their option."""
     d = os.path.dirname(open_xml)
     for f in ('floor.obj', 'sky.exr'):
         os.symlink(os.path.join(d, f), tmp_path / f)
@@ -205,8 +207,18 @@ def test_unported_features_still_raise(open_xml, tmp_path, case, words):
     kw.update(case)
     xml = tmp_path / 'scene.xml'
     xml.write_text(_SCENE_HEAD.format(**kw))
+    if words in _PORTED_SINCE:
+        _, opts, _ = parse_scene(str(xml), device='cpu')
+        assert getattr(opts, _PORTED_SINCE[words]) and opts.mala
+        return
     with pytest.raises(NotImplementedError, match=words):
         parse_scene(str(xml), device='cpu')
+
+
+_PORTED_SINCE = {'multiplexed large steps': 'large_step_multiplexed',
+                 'cache-seeded large steps': 'sample_from_global_cache',
+                 'light-coordinate sampling':
+                 'use_light_coordinate_sampling'}
 
 
 def test_ported_features_parse(open_xml):
