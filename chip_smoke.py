@@ -32,7 +32,8 @@ Phases (any failure exits non-zero before the last line is printed):
      and rays aimed at the scene) against their plain version, with time,
      plain time, bound and the share of live rays that miss;
   5. path generation on the card against the CPU plain path on the small
-     generated box and open scenes (same tape);
+     generated box and open scenes and on the small moving open scene
+     (same tape);
   6. path A, the MALA render through the CLI entry point: 1024x768,
      maxdepth 8, 65,536 chains, 300,000 bootstrap samples, directspp 1,
      --spp 1 (12 chain iterations); it runs K1/K2;
@@ -50,13 +51,26 @@ Phases (any failure exits non-zero before the last line is printed):
      generated lanes that carried light-coordinate parameters;
  11. the cache phase: path E's state bootstrapped at full width, cache rows
      pre-filled from the seed states (paths included), a few chain
-     iterations; the cache branch must run on some lanes.
+     iterations; the cache branch must run on some lanes;
+ 12. path F, path D's configuration with --motion (the torus and the quad
+     light turn and move between two keyframes, the camera pans, the env
+     map turns): every ray query is the motion brute force in torch (no
+     kernel), the frozen replay and path_grad run without a bake. Before
+     it, one brute-force closest-hit and one any-hit query at 65,536 rays
+     on that scene, timed by CUDA events (the closest hit also at blocks
+     of 2^20, 2^22 and 2^24 ray-triangle pairs, each checked equal); after
+     it, their share of path F's iteration and the brute force's
+     host-clock share of the render; no walk kernel may launch;
+ 13. path G, path A's configuration with neither mala nor h2mc: the
+     isotropic-only chain through K1/K2.
 Phase 5 also holds generate_subpath with light-coordinate sampling (mixed
 (s, t) per lane) on the card against the CPU.
 Each render's film must be finite, non-negative, non-zero and 768x1024x3
-(path D's top rows, the sky, lit too), and each kernel must have been
-launched by the path that runs it (the launch counts are reset just before
-each path and read just after).
+(path D's and path F's top rows, the sky, lit too), and each kernel must
+have been launched by the path that runs it (the launch counts are reset
+just before each path and read just after). Each MCMC path prints its
+chain-loop ms per iteration, proposals/s, acceptance rate, bootstrap and
+direct-pass seconds and peak device memory.
 The line before the last two is {"kernels": [...]}: per kernel its
 launches on its path (K1/K2 also on path E: launches_path_e), max |error|
 against the plain version, its time and
@@ -566,6 +580,105 @@ def count_light_coords():
     return counter
 
 
+def motion_rays(scene, n, seed):
+    """n rays on the card at random shutter times: n/2 camera rays, n/2
+    leaving points of random triangles at the ray's time in random
+    directions, 30% of those dead."""
+    from langevin_mcmc_tpu_torch.ops.intersect import tri_vertices_at_time
+    from langevin_mcmc_tpu_torch.scene.camera import sample_primary
+    dev = scene.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = n // 2
+    time_ = torch.rand(n, generator=g, device=dev)
+    org0, d0, mn0, mx0 = sample_primary(
+        scene.camera, torch.rand((h, 2), generator=g, device=dev),
+        time_[:h])
+    tri = torch.randint(0, scene.num_tris, (n - h,), generator=g, device=dev)
+    b = torch.rand((n - h, 2), generator=g, device=dev)
+    b = torch.where((b.sum(1) > 1)[:, None], 1 - b, b)
+    p = tri_vertices_at_time(scene, tri, time_[h:])
+    org1 = (p[:, 0] * (1 - b.sum(1))[:, None] + p[:, 1] * b[:, :1]
+            + p[:, 2] * b[:, 1:])
+    d1 = torch.randn((n - h, 3), generator=g, device=dev)
+    d1 = d1 / d1.norm(dim=1, keepdim=True)
+    alive = torch.rand(n - h, generator=g, device=dev) >= 0.3
+    mx1 = torch.where(alive, torch.full((n - h,), float('inf'), device=dev),
+                      torch.zeros(n - h, device=dev))
+    return (torch.cat([org0, org1]), torch.cat([d0, d1]), time_,
+            torch.cat([mn0, torch.full((n - h,), 1e-4, device=dev)]),
+            torch.cat([mx0, mx1]))
+
+
+def motion_queries(scene):
+    """One brute-force closest-hit and one any-hit query at 65,536 rays on
+    the moving scene (motion_rays), CUDA-event ms, then the closest hit at
+    three block sizes. Returns (closest ms, any ms) at the default."""
+    from langevin_mcmc_tpu_torch.ops import intersect
+    rays = motion_rays(scene, 65536, seed=23)
+    live = int((rays[4] >= rays[3]).sum())
+    hit = intersect.intersect_bruteforce(scene, *rays)[0]
+    ms_c = cuda_ms(lambda: intersect.intersect_bruteforce(scene, *rays), 3)
+    ms_a = cuda_ms(lambda: intersect.occluded_bruteforce(scene, *rays), 3)
+    pairs = live * scene.num_tris
+    log(f'motion brute force, 65,536 rays ({live} live, {int(hit.sum())} '
+        f'hit) x {scene.num_tris} triangles: closest hit {ms_c:.1f} ms, any '
+        f'hit {ms_a:.1f} ms (CUDA events); {pairs:.4g} ray-triangle pairs, '
+        f'{pairs / ms_c / 1e6:.3f} Gpairs/s')
+    if not hit.any():
+        raise AssertionError('motion brute force: no ray hit')
+    # the block of ray-triangle pairs, each size first checked equal to
+    # the default
+    want = intersect.intersect_bruteforce(scene, *rays)
+    default = intersect.PAIR_BLOCK
+    try:
+        for pairs in (1 << 20, 1 << 22, 1 << 24):
+            intersect.PAIR_BLOCK = pairs
+            got = intersect.intersect_bruteforce(scene, *rays)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f'motion brute force: blocks of '
+                                     f'{pairs} pairs change the answer')
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: intersect.intersect_bruteforce(scene, *rays),
+                         3)
+            log(f'  blocks of {pairs} pairs'
+                f'{" (default)" if pairs == default else ""}: closest hit '
+                f'{ms:.1f} ms, peak device memory '
+                f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    finally:
+        intersect.PAIR_BLOCK = default
+    return ms_c, ms_a
+
+
+class BruteForceCounter:
+    """Counts the brute-force queries made while it is active (occluded
+    queries call intersect_bruteforce too): queries, rays, live rays and
+    host-clock seconds, each query ending in a device sync."""
+
+    def __init__(self):
+        self.calls = self.rays = self.live = 0
+        self.seconds = 0.0
+
+    def __enter__(self):
+        from langevin_mcmc_tpu_torch.ops import intersect
+        self.orig = orig = intersect.intersect_bruteforce
+
+        def counting(scene, org, d, time_, min_t, max_t):
+            t0 = time.time()
+            out = orig(scene, org, d, time_, min_t, max_t)
+            torch.cuda.synchronize()
+            self.seconds += time.time() - t0
+            self.calls += 1
+            self.rays += org.shape[0]
+            self.live += int((max_t >= min_t).sum())
+            return out
+        intersect.intersect_bruteforce = counting
+        return self
+
+    def __exit__(self, *exc):
+        from langevin_mcmc_tpu_torch.ops import intersect
+        intersect.intersect_bruteforce = self.orig
+
+
 def render(label, xml, env, sky=False):
     """One render through the CLI with env set around it. Checks the film
     (sky: its top rows must be lit too); returns (CLI result, launch counts
@@ -614,12 +727,16 @@ def render(label, xml, env, sky=False):
 
 
 def chain_rate(label, res):
+    """Print a render's phase times, proposals/s and acceptance rate;
+    returns the chain loop's proposals/s."""
     tm = res['timings']
-    props = tm['steps'] * res['opts'].num_chains / tm['loop_s']
+    proposals = tm['steps'] * res['opts'].num_chains
+    props = proposals / tm['loop_s']
     log(f'{label}: b = {res["b"]:.6g}; direct {tm["direct_s"]:.2f} s, '
         f'bootstrap {tm["bootstrap_s"]:.2f} s, chain loop {tm["loop_s"]:.2f} '
         f's ({tm["steps"]} iterations, {tm["loop_s"] / tm["steps"] * 1e3:.1f} '
-        f'ms each), {props:.1f} proposals/s')
+        f'ms each), {props:.1f} proposals/s, acceptance '
+        f'{tm["accepts"] / proposals:.4f} ({tm["accepts"]} of {proposals})')
     return props
 
 
@@ -760,6 +877,12 @@ def main():
                                       light_coords=True)
     xml_e = write_flagship(os.path.join(OUT, 'flagship_cache'),
                            large_step='cache', light_coords=True)
+    xml_f = write_flagship(os.path.join(OUT, 'open_motion'), scene='open',
+                           motion=True)
+    xml_g = write_flagship(os.path.join(OUT, 'flagship_iso'), kernel='iso')
+    small_motion = testscenes.write_scene(
+        os.path.join(OUT, 'small_motion'), small=True, width=64, height=48,
+        max_depth=4, scene='open', motion=True)
     scene, opts, _ = parse_scene(xml, device='cuda')
     log(f'flagship scene: {scene.num_tris} triangles, '
         f'{scene.cw.pack.shape[0]} chunks of 128 '
@@ -778,6 +901,7 @@ def main():
     del scene
     check_generation(small_xml)
     check_generation(small_open)
+    check_generation(small_motion)
     check_subpath_generation(small_lc)
 
     res_a, launch_a = render('path A (MALA)', xml, {})
@@ -802,6 +926,41 @@ def main():
     log(f'path E / path A chain-loop proposals/s (same call): '
         f'{rate_e:.1f} / {rate_a:.1f} = {rate_e / rate_a:.3f}')
     cache_phase(xml_e)
+
+    scene, _, _ = parse_scene(xml_f, device='cuda')
+    log(f'moving open scene: {scene.num_tris} triangles, has_motion '
+        f'{scene.has_motion}, '
+        f'{int((scene.tri_p[0] != scene.tri_p[1]).any(-1).any(-1).sum())} '
+        f'of them move')
+    ms_c, ms_a = motion_queries(scene)
+    del scene
+    with BruteForceCounter() as bf:
+        res_f, launch_f = render('path F (MALA, moving open scene)', xml_f,
+                                 {}, sky=True)
+    rate_f = chain_rate('path F (MALA, moving open scene)', res_f)
+    tm = res_f['timings']
+    it_ms = tm['loop_s'] / tm['steps'] * 1e3
+    log(f'path F: {bf.calls} brute-force queries ({bf.rays} rays, {bf.live} '
+        f'live), {bf.seconds:.2f} s host clock = '
+        f'{bf.seconds / res_f["seconds"]:.3f} of the render\'s '
+        f'{res_f["seconds"]:.2f} s; one 65,536-ray query = '
+        f'{ms_c / it_ms:.4f} (closest) / {ms_a / it_ms:.4f} (any) of an '
+        f'iteration ({it_ms:.1f} ms)')
+    log(f'path F / path D chain-loop proposals/s (same call): '
+        f'{rate_f:.1f} / {rate_d:.1f} = {rate_f / rate_d:.4f}')
+    if bf.calls <= 0 or any(launch_f.values()):
+        raise AssertionError(f'path F: {bf.calls} brute-force queries, walk '
+                             f'kernel launches {launch_f}: a moving scene '
+                             f'must take the brute force only')
+    res_g, launch_g = render('path G (isotropic-only chain)', xml_g, {})
+    rate_g = chain_rate('path G (isotropic-only chain)', res_g)
+    log(f'path G / path A chain-loop proposals/s (same call): '
+        f'{rate_g:.1f} / {rate_a:.1f} = {rate_g / rate_a:.3f}')
+    for key in ('split_closest_hit', 'split_any_hit'):
+        rows[key]['launches_path_g'] = launch_g[key]
+        if launch_g[key] <= 0:
+            raise AssertionError(f'{rows[key]["name"]} was never launched by '
+                                 f'path G')
     for key in ('split_closest_hit', 'split_any_hit'):
         rows[key]['launches_path_e'] = launch_e[key]
         if launch_e[key] <= 0:

@@ -2,9 +2,10 @@
 
     python -m langevin_mcmc_tpu_torch scene.xml [--spp N] [--device cpu]
 
-Dispatches on the <dpt> integrator: "mcmc" (MALA or H2MC small steps with
-plain, multiplexed or cache-seeded large steps) or "mc" (bidirectional
-path tracing). Writes <output>_timeuse_<seconds>s.exr and .png into
+Dispatches on the <dpt> integrator: "mcmc" (isotropic, MALA or H2MC
+small steps with plain, multiplexed or cache-seeded large steps) or "mc"
+(bidirectional path tracing); shapes, the camera and the env map may move
+between two keyframes. Writes <output>_timeuse_<seconds>s.exr and .png into
 --output-dir, and intermediate.exr/.png there every reportintervalspp spp
 of an MCMC render. Renders on the card; on a machine without one,
 --device cpu must be given.

@@ -1,14 +1,14 @@
 """MLT integrator: bootstrap, the vectorised chain step and film accumulation
-(port of integrators/mlt.py for MALA or H2MC small steps with plain,
-multiplexed or cache-seeded large steps).
+(port of integrators/mlt.py for isotropic, MALA or H2MC small steps with
+plain, multiplexed or cache-seeded large steps).
 
 * bootstrap generates num_init_samples paths in wavefront chunks, takes
   the average brightness (the normalization) and the path-length
   histogram, and equal-spaced-resamples chain seeds from the
   per-contribution CDF;
 * the chain step advances all chains at once: the large step runs on a
-  gathered subset of the lanes that want one, the MALA or H2MC small step
-  on all;
+  gathered subset of the lanes that want one, the small step (isotropic,
+  MALA or H2MC: small_kind) on all;
 * each chain carries its current state's splat bank (a plain large-step
   state re-splats every technique of its path weighted 1 - a; a
   multiplexed or cache-seeded large-step state and a small-step state
@@ -99,6 +99,12 @@ def large_kind(opts):
     return 'mmlt' if opts.large_step_multiplexed else 'plain'
 
 
+def small_kind(opts):
+    """The small-step kernel: 'h2mc', 'mala', or 'iso' (neither: the
+    isotropic N(0, perturbStdDev^2) proposal alone)."""
+    return 'h2mc' if opts.h2mc else 'mala' if opts.mala else 'iso'
+
+
 def bank_slots(opts, D):
     """Width of the per-chain splat bank. Plain large steps: every s >= 2
     technique of a path splats at the one camera screen position, so they
@@ -186,11 +192,12 @@ def make_mlt_step(scene, opts, normalization, ls_prob, length_dist=None):
     to a small step that iteration.
 
     length_dist: the bootstrap's path-length distribution, needed by the
-    multiplexed and cache-seeded large steps. step.counts sums the
-    large-step lanes of every call on the device (no sync): 'large' (lanes
-    that took a large step) and, for multiplexed and cache-seeded steps,
-    'mmlt' (the multiplexed uniform proposals among them), 'cache' (the
-    cache-seeded ones) and 'cache_accepts'."""
+    multiplexed and cache-seeded large steps. step.counts sums lane counts
+    of every call on the device (no sync): 'accepts' (accepted proposals,
+    large and small), 'large' (lanes that took a large step) and, for
+    multiplexed and cache-seeded steps, 'mmlt' (the multiplexed uniform
+    proposals among them), 'cache' (the cache-seeded ones) and
+    'cache_accepts'."""
     C = opts.num_chains
     D = opts.max_depth
     Dm = 2 * D
@@ -202,7 +209,7 @@ def make_mlt_step(scene, opts, normalization, ls_prob, length_dist=None):
     K = min(C, max(int(C * min(ls_prob, 1.0) * 1.3) + 1, 8))
     _, _, s_tags_static, _ = _slot_tables(D)
     dev = scene.device
-    h2mc = opts.h2mc
+    small = small_kind(opts)
 
     counts = {}
 
@@ -258,11 +265,16 @@ def make_mlt_step(scene, opts, normalization, ls_prob, length_dist=None):
                   for k, v in prop_lk.items()
                   if k not in ('all_flat', 'use_cache')}
 
-        # isotropic-mixing lanes share the small step's single replay
-        use_iso = rand(C) < opts.uniform_mixing_probability
+        # the iso kind proposes from the isotropic kernel on every lane;
+        # MALA's and H2MC's isotropic-mixing lanes share their single replay
+        use_iso = torch.ones(C, dtype=torch.bool, device=dev) \
+            if small == 'iso' else rand(C) < opts.uniform_mixing_probability
         z = torch.randn((C, Dm), generator=gen, device=dev)
         noise = chain_mod.perturb_noise(gen, C, D, opts, dev)
-        if h2mc:
+        if small == 'iso':
+            prop_adv, a_small = chain_mod.small_step_iso(
+                scene, opts, state, z * opts.perturb_std_dev, noise)
+        elif small == 'h2mc':
             prop_adv, a_small = chain_mod.small_step_h2mc(
                 scene, opts, state, z, noise, use_iso=use_iso,
                 skip_lanes=is_large)
@@ -311,6 +323,7 @@ def make_mlt_step(scene, opts, normalization, ls_prob, length_dist=None):
 
         # ---- accept / reject ----
         acc = (a > 0.0) & (rand(C) <= a)
+        count('accepts', acc)
         if kind == 'cache':
             count('cache_accepts', acc[sel] & did_large_k & use_cache_k)
         prop_rec = chain_mod._where_state(is_large, prop_l['rec'],
@@ -343,18 +356,24 @@ def make_mlt_step(scene, opts, normalization, ls_prob, length_dist=None):
         # evaluated (cur_ok); gaussianInitialized clears on large-step and
         # iso accepts
         ran_adv = ~is_large & ~use_iso
-        cur_ok = prop_adv['cur_ok']
-        new_gauss = chain_mod._where_gauss(
-            acc_small_adv, prop_adv['gauss_prop'],
-            chain_mod._where_gauss(ran_adv & cur_ok, prop_adv['gauss_cur'],
-                                   state.gaussian))
-        new_gauss_init = torch.where(
-            acc_large | (acc_small & use_iso), torch.zeros_like(acc),
-            torch.where(ran_adv, acc_small_adv | cur_ok,
-                        state.gaussian_init))
-        # H2MC keeps no moments, snapshots or cache
+        if small == 'iso':
+            # no Gaussian: any accept clears gaussianInitialized
+            new_gauss = state.gaussian
+            new_gauss_init = torch.where(acc, torch.zeros_like(acc),
+                                         state.gaussian_init)
+        else:
+            cur_ok = prop_adv['cur_ok']
+            new_gauss = chain_mod._where_gauss(
+                acc_small_adv, prop_adv['gauss_prop'],
+                chain_mod._where_gauss(ran_adv & cur_ok,
+                                       prop_adv['gauss_cur'], state.gaussian))
+            new_gauss_init = torch.where(
+                acc_large | (acc_small & use_iso), torch.zeros_like(acc),
+                torch.where(ran_adv, acc_small_adv | cur_ok,
+                            state.gaussian_init))
+        # only MALA keeps moments, snapshots and the cache
         moments = {}
-        if not h2mc:
+        if small == 'mala':
             moments, cache = _mala_commit(state, prop_adv, cache, acc_large,
                                           acc_small_adv, ran_adv, opts)
 
@@ -453,9 +472,9 @@ def render_mlt(scene, opts, generator, num_steps=None, progress=False,
     num_steps: chain iterations (default: opts.spp * pixels / chains).
     timings: optional dict, filled with the seconds of each phase
     (bootstrap, direct, chain loop, snapshot writes; each ends in a device
-    sync), the number of chain iterations, the large-step lane counts of
-    the steps (make_mlt_step's step.counts) and, with a cache, the rows
-    that filled ('cache_rows_ready').
+    sync), the number of chain iterations, the accepted proposals and the
+    large-step lane counts of the steps (make_mlt_step's step.counts) and,
+    with a cache, the rows that filled ('cache_rows_ready').
     intermediate_path: base path of the snapshots {path}.exr and
     {path}.png, written every report_interval_spp spp of the chain loop
     (when opts.report_interval_spp > 0) until the last iteration; their

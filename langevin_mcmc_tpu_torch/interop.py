@@ -43,11 +43,13 @@ def textures_from_numpy(d):
 
 def scene_from_numpy(d, device='cpu'):
     """SceneData from a dict of numpy arrays holding the JAX SceneData
-    fields (HOST_FIELDS, num_lights, env_light_id, 'camera': a dict of
+    fields (HOST_FIELDS, both keyframes of tri_p and tri_n among them,
+    num_lights, env_light_id, has_motion, 'camera': a dict of
     CAMERA_FIELDS, and 'textures': a dict of TEXTURE_FIELDS)."""
     host = {k: np.asarray(d[k]) for k in HOST_FIELDS}
     host['num_lights'] = int(d['num_lights'])
     host['env_light_id'] = int(d['env_light_id'])
+    host['has_motion'] = bool(d['has_motion'])
     host['camera'] = {k: np.asarray(d['camera'][k]) for k in CAMERA_FIELDS}
     host['textures'] = textures_from_numpy(d['textures'])
     return build_scene(host, device)

@@ -1,6 +1,6 @@
 """Vectorised Markov-chain state and the mutation kernels: the plain,
-multiplexed and cache-seeded large steps and the MALA and H2MC small steps
-(port of mcmc/chain.py; the isotropic-only small step is not ported yet).
+multiplexed and cache-seeded large steps and the isotropic, MALA and H2MC
+small steps (port of mcmc/chain.py).
 
 All chains advance in lockstep as one wavefront. Random inputs are
 explicit: uniform tapes and uniforms for the large steps, standard normal
@@ -293,7 +293,7 @@ def large_step_cache(scene, opts, state: ChainState, length_dist, cache,
 
 
 # ---------------------------------------------------------------------------
-# MALA small step
+# small steps
 # ---------------------------------------------------------------------------
 
 def perturb_noise(generator, C, D, opts, device):
@@ -303,17 +303,44 @@ def perturb_noise(generator, C, D, opts, device):
     return dict(time=n(C), cam_disc=n(C, D), lgt_disc=n(C, D))
 
 
+def small_step_iso(scene, opts, state: ChainState, offset, noise):
+    """Isotropic small step: the perturb replay at offset [C, Dm] (the
+    N(0, perturbStdDev^2) draw, already scaled) with the perturb jitters
+    noise (perturb_noise); the MH ratio is the ssScore ratio.
+    Returns (proposal dict, a)."""
+    new_rec, res = replay.replay_path(scene, opts, state.rec, offset, noise,
+                                      mode='perturb')
+    ok = res['valid'] & (res['ss_score'] > 0.0)
+    a = torch.clamp(res['ss_score'] / torch.clamp(state.ss_score, min=1e-20),
+                    0.0, 1.0)
+    a = torch.where(ok, a, torch.zeros_like(a))
+    return dict(rec=new_rec, contrib=res['contrib'], screen=res['screen_pos'],
+                ls=res['ls_score'], ss=res['ss_score'], ok=ok), a
+
+
+def _bake(scene, opts, rec):
+    """The frozen-path bake of rec on a static scene; None on a moving one,
+    whose frozen replay lerps each triangle at the record's time."""
+    return None if scene.has_motion else replay.bake_frozen(scene, opts, rec)
+
+
 def _perturb_and_grad(scene, opts, rec, offset, noise, grad_mask,
                       want_hess=False):
-    """Perturb replay (collecting the frozen-path bake) + the gradient at
-    the proposal (and its dense Hessian when want_hess: H2MC), skipped
-    when no lane consumes it.
+    """Perturb replay (collecting the frozen-path bake on a static scene) +
+    the gradient at the proposal (and its dense Hessian when want_hess:
+    H2MC), skipped when no lane consumes it.
     Returns (new_rec, res, grad [C, Dm], hess [C, Dm, Dm] or None)."""
     C = rec.time.shape[0]
     Dm = 2 * rec.max_depth
     dev = rec.time.device
-    new_rec, res, bake = replay.replay_path(
-        scene, opts, rec, offset, noise, mode='perturb', collect_bake=True)
+    if scene.has_motion:
+        new_rec, res = replay.replay_path(scene, opts, rec, offset, noise,
+                                          mode='perturb')
+        bake = None
+    else:
+        new_rec, res, bake = replay.replay_path(
+            scene, opts, rec, offset, noise, mode='perturb',
+            collect_bake=True)
     if bool(grad_mask.any()):
         if want_hess:
             grad, hess = replay.path_grad_hessian(scene, opts, new_rec,
@@ -385,8 +412,7 @@ def small_step_mala(scene, opts, state: ChainState, z, noise, cache,
         cur_need &= ~skip_lanes
 
     def grad_with_bake(r):
-        return replay.path_grad(scene, opts, r,
-                                bake=replay.bake_frozen(scene, opts, r))
+        return replay.path_grad(scene, opts, r, bake=_bake(scene, opts, r))
 
     def sparse_cur_grad():
         Kc = min(C, max(int(C * opts.cur_grad_fraction), 8))
@@ -584,8 +610,7 @@ def small_step_h2mc(scene, opts, state: ChainState, z, noise, use_iso=None,
             sel = torch.argsort(torch.where(need, 0, 1), stable=True)[:Kc]
         rec_sel = tree_take(state.rec, sel)
         grad, hess = replay.path_grad_hessian(
-            scene, opts, rec_sel, bake=replay.bake_frozen(scene, opts,
-                                                          rec_sel))
+            scene, opts, rec_sel, bake=_bake(scene, opts, rec_sel))
         gauss_sel = h2mc_gauss(grad, hess, state.ss_score[sel])
 
         def put(s, d):

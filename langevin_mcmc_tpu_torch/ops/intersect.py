@@ -1,13 +1,16 @@
 """Ray/triangle intersection over the whole scene (port of ops/intersect.py).
 
 * ``intersect_bruteforce`` — Moller-Trumbore over every triangle in chunks;
-  exact, the test oracle.
+  exact, the test oracle, and the query of every moving scene: each
+  (ray, triangle) pair tests the triangle's vertices lerped between the
+  two keyframes at the ray's time.
 * ``make_intersect_fns`` — the backend switch of the queries: the chunk
   walk (``ops/chunkwalk.py``), the culled sweep (``ops/sweep_isect.py``)
   or brute force; each kernel launches for CUDA tensors and runs its plain
   torch version for CPU tensors.
-* packed triangle rows, hit attributes and the frozen-triangle replay
-  intersection used under differentiation.
+* triangle rows (packed keyframe-0 rows on a static scene, rows lerped at
+  the lane's time on a moving one), hit attributes and the frozen-triangle
+  replay intersection used under differentiation.
 """
 
 import os
@@ -19,6 +22,25 @@ import torch
 from ..utils import vecmath as vm
 
 TRI_CHUNK = 1024
+# ray-triangle pairs one block of the brute force holds: a moving scene
+# materialises [rays, TRI_CHUNK, 3, 3] lerped vertices a block
+PAIR_BLOCK = 1 << 22
+
+
+def tri_vertices_at_time(scene, tri_idx, time):
+    """Triangle vertices [..., 3, 3] at shutter `time` [...] (keyframe 0
+    on a static scene)."""
+    p = scene.tri_p
+    if scene.has_motion:
+        return vm.lerp(time[..., None, None], p[0, tri_idx], p[1, tri_idx])
+    return p[0, tri_idx]
+
+
+def tri_normals_at_time(scene, tri_idx, time):
+    n = scene.tri_n
+    if scene.has_motion:
+        return vm.lerp(time[..., None, None], n[0, tri_idx], n[1, tri_idx])
+    return n[0, tri_idx]
 
 
 def moller_trumbore(org, d, p0, e1, e2):
@@ -35,23 +57,57 @@ def moller_trumbore(org, d, p0, e1, e2):
 
 
 def intersect_bruteforce(scene, org, d, time, min_t, max_t):
-    """Closest hit over all triangles. org/d [R,3]; min_t, max_t [R].
-    Returns (hit, tri_id, t, u, v)."""
+    """Closest hit over all triangles. org/d [R,3]; time, min_t, max_t [R].
+    Returns (hit, tri_id, t, u, v). A hit is the smallest t; a tie goes to
+    the first triangle within a chunk of TRI_CHUNK and to the earlier chunk
+    across chunks. Only live rays (max_t >= min_t: no other can hit) are
+    tested, in blocks of PAIR_BLOCK // TRI_CHUNK rays."""
+    R = org.shape[0]
+    dev = org.device
+    best_t = torch.full((R,), float('inf'), device=dev)
+    best_id = torch.zeros(R, dtype=torch.int32, device=dev)
+    best_u = torch.zeros(R, device=dev)
+    best_v = torch.zeros(R, device=dev)
+    live = torch.nonzero(max_t >= min_t)[:, 0]
+    rb = max(PAIR_BLOCK // TRI_CHUNK, 1)
+    for r0 in range(0, live.numel(), rb):
+        lanes = live[r0:r0 + rb]
+        out = _bruteforce_block(scene, org[lanes], d[lanes], time[lanes],
+                                min_t[lanes], max_t[lanes])
+        for full, part in zip((best_t, best_id, best_u, best_v), out):
+            full[lanes] = part
+    hit = torch.isfinite(best_t)
+    return hit, best_id, torch.where(hit, best_t, torch.zeros_like(best_t)), \
+        best_u, best_v
+
+
+def _bruteforce_block(scene, org, d, time, min_t, max_t):
+    """intersect_bruteforce's scan over the triangle chunks for one block
+    of rays. Returns (t, tri_id, u, v), t = inf where nothing is hit."""
     T = scene.num_tris
     R = org.shape[0]
-    best_t = torch.full((R,), float('inf'), device=org.device)
-    best_id = torch.zeros(R, dtype=torch.int32, device=org.device)
-    best_u = torch.zeros(R, device=org.device)
-    best_v = torch.zeros(R, device=org.device)
-    rows = torch.arange(R, device=org.device)
+    dev = org.device
+    best_t = torch.full((R,), float('inf'), device=dev)
+    best_id = torch.zeros(R, dtype=torch.int32, device=dev)
+    best_u = torch.zeros(R, device=dev)
+    best_v = torch.zeros(R, device=dev)
+    rows = torch.arange(R, device=dev)
+    o, dd = org[:, None, :], d[:, None, :]
     for start in range(0, T, TRI_CHUNK):
-        idx = torch.arange(start, min(start + TRI_CHUNK, T), device=org.device)
-        tp = scene.tri_p[0][idx]
-        p0 = tp[None, :, 0, :]
-        e1 = (tp[:, 1, :] - tp[:, 0, :])[None]
-        e2 = (tp[:, 2, :] - tp[:, 0, :])[None]
-        t, u, v, divisor = moller_trumbore(org[:, None, :], d[:, None, :],
-                                           p0, e1, e2)
+        end = min(start + TRI_CHUNK, T)
+        if scene.has_motion:
+            tp = vm.lerp(time[:, None, None, None],
+                         scene.tri_p[0, None, start:end],
+                         scene.tri_p[1, None, start:end])
+            p0 = tp[..., 0, :]
+            e1 = tp[..., 1, :] - p0
+            e2 = tp[..., 2, :] - p0
+        else:
+            tp = scene.tri_p[0, start:end]
+            p0 = tp[None, :, 0, :]
+            e1 = (tp[:, 1, :] - tp[:, 0, :])[None]
+            e2 = (tp[:, 2, :] - tp[:, 0, :])[None]
+        t, u, v, divisor = moller_trumbore(o, dd, p0, e1, e2)
         ok = ((divisor != 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
               & (t >= min_t[:, None]) & (t <= max_t[:, None]))
         t = torch.where(ok, t, torch.full_like(t, float('inf')))
@@ -59,12 +115,11 @@ def intersect_bruteforce(scene, org, d, time, min_t, max_t):
         ct, cu, cv = t[rows, amin], u[rows, amin], v[rows, amin]
         better = ct < best_t
         best_t = torch.where(better, ct, best_t)
-        best_id = torch.where(better, idx[amin].to(torch.int32), best_id)
+        best_id = torch.where(better, (amin + start).to(torch.int32),
+                              best_id)
         best_u = torch.where(better, cu, best_u)
         best_v = torch.where(better, cv, best_v)
-    hit = torch.isfinite(best_t)
-    return hit, best_id, torch.where(hit, best_t, torch.zeros_like(best_t)), \
-        best_u, best_v
+    return best_t, best_id, best_u, best_v
 
 
 def occluded_bruteforce(scene, org, d, time, min_t, max_t):
@@ -78,33 +133,44 @@ def make_intersect_fns(scene):
     '' or 'chunkwalk' the chunk walk (its resident form when the pack is
     at most LMC_CW_VMEM_BYTES bytes), 'pallas' the culled sweep (the JAX
     package's Pallas sweep, ported as ops/sweep_isect.py), 'brute' brute
-    force. The XLA matmul sweep ('matmul') is not ported."""
+    force. A scene with moving shapes takes brute force whatever the
+    variable names, as in the JAX package: the walk tables hold keyframe 0
+    only. The XLA matmul sweep ('matmul') is not ported."""
     backend = os.environ.get('LMCMC_ISECT_BACKEND', '')
+    if backend not in ('', 'chunkwalk', 'pallas', 'brute'):
+        raise ValueError(f'LMCMC_ISECT_BACKEND={backend!r}: the port has the '
+                         f"backends 'chunkwalk', 'pallas' and 'brute' (the "
+                         f'XLA matmul sweep is not ported)')
+    if backend == 'brute' or scene.has_motion:
+        return (partial(intersect_bruteforce, scene),
+                partial(occluded_bruteforce, scene))
     if backend in ('', 'chunkwalk'):
         from .chunkwalk import (intersect_chunkwalk, occluded_chunkwalk,
                                 use_resident)
         resident = use_resident(scene.cw.pack)
         return (partial(intersect_chunkwalk, scene, resident=resident),
                 partial(occluded_chunkwalk, scene, resident=resident))
-    if backend == 'pallas':
-        from .sweep_isect import intersect_sweep, occluded_sweep
-        return (partial(intersect_sweep, scene),
-                partial(occluded_sweep, scene))
-    if backend == 'brute':
-        return (partial(intersect_bruteforce, scene),
-                partial(occluded_bruteforce, scene))
-    raise ValueError(f'LMCMC_ISECT_BACKEND={backend!r}: the port has the '
-                     f"backends 'chunkwalk', 'pallas' and 'brute' (the XLA "
-                     f"matmul sweep is not ported)")
+    from .sweep_isect import intersect_sweep, occluded_sweep
+    return (partial(intersect_sweep, scene), partial(occluded_sweep, scene))
 
 
 # ---------------------------------------------------------------------------
-# packed per-triangle rows
+# per-triangle rows
 # ---------------------------------------------------------------------------
 
-def gather_tri_row_raw(scene, tri_id):
-    """One [..., 24] packed geometry row gather (scenedata.build_tri_geom)."""
-    return scene.tri_geom[tri_id]
+def gather_tri_row_raw(scene, tri_id, time=None):
+    """One [..., 24] geometry row per triangle, laid out as
+    scenedata.build_tri_geom: the packed keyframe-0 row on a static scene;
+    on a moving one the row of the vertices and normals lerped at `time`
+    [...] (edges from the lerped vertices, as the JAX package's motion
+    branches compute them)."""
+    if not scene.has_motion:
+        return scene.tri_geom[tri_id]
+    tp = tri_vertices_at_time(scene, tri_id, time)
+    tn = tri_normals_at_time(scene, tri_id, time)
+    p0 = tp[..., 0, :]
+    return torch.cat([p0, tp[..., 1, :] - p0, tp[..., 2, :] - p0,
+                      tn.flatten(-2), scene.tri_st[tri_id].flatten(-2)], -1)
 
 
 def row_dict_from_raw(row, mat_id=None, light_id=None):
@@ -115,9 +181,10 @@ def row_dict_from_raw(row, mat_id=None, light_id=None):
                 mat_id=mat_id, light_id=light_id)
 
 
-def gather_tri_row(scene, tri_id):
-    """dict(p0, e1, e2, tn [...,3,3], tst [...,3,2], mat_id, light_id)."""
-    return row_dict_from_raw(gather_tri_row_raw(scene, tri_id),
+def gather_tri_row(scene, tri_id, time=None):
+    """dict(p0, e1, e2, tn [...,3,3], tst [...,3,2], mat_id, light_id) of
+    triangle tri_id at `time` (needed on a moving scene only)."""
+    return row_dict_from_raw(gather_tri_row_raw(scene, tri_id, time),
                              scene.tri_mat[tri_id], scene.tri_light[tri_id])
 
 
@@ -140,8 +207,9 @@ def hit_attrs_from_row(row, org, d, t, u, v):
 
 
 def hit_attrs_full(scene, tri_id, org, d, t, u, v, time):
-    """Returns (pos, shading_n, geom_n, st, mat_id, light_id)."""
-    row = gather_tri_row(scene, tri_id)
+    """Hit attributes of a confirmed hit, the triangle at the ray's time.
+    Returns (pos, shading_n, geom_n, st, mat_id, light_id)."""
+    row = gather_tri_row(scene, tri_id, time)
     pos, sn, gn, st = hit_attrs_from_row(row, org, d, t, u, v)
     return pos, sn, gn, st, row['mat_id'], row['light_id']
 

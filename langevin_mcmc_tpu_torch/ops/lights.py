@@ -81,18 +81,19 @@ def _sample_tri_from_row(row, u):
     return pos, normal
 
 
-def sample_tri(scene, tri_id, u):
-    """Uniform point on triangle tri_id at the sample parameters u [..., 2]
-    (the sqrt warp of _sample_tri_from_row). Returns (pos, normal)."""
+def sample_tri(scene, tri_id, u, time):
+    """Uniform point on triangle tri_id, at shutter `time`, for the sample
+    parameters u [..., 2] (the sqrt warp of _sample_tri_from_row).
+    Returns (pos, normal)."""
     from .intersect import gather_tri_row
-    return _sample_tri_from_row(gather_tri_row(scene, tri_id.long()), u)
+    return _sample_tri_from_row(gather_tri_row(scene, tri_id.long(), time), u)
 
 
-def get_sample_param(scene, tri_id, pos):
+def get_sample_param(scene, tri_id, pos, time):
     """Inverse of sample_tri: the (u0, u1) that sample `pos` on triangle
-    tri_id, through its barycentric coordinates."""
+    tri_id at `time`, through its barycentric coordinates."""
     from .intersect import gather_tri_row
-    row = gather_tri_row(scene, tri_id.long())
+    row = gather_tri_row(scene, tri_id.long(), time)
     e1, e2 = row['e1'], row['e2']
     e0 = pos - row['p0']
     d11 = vm.dot(e1, e1)
@@ -276,7 +277,8 @@ def bake_light(scene, light_id, lprim_id):
     """Every per-lane constant emit/sample_direct need for a known
     (light, primitive), gathered once (the replay's light pack): the light
     row, the area light's triangle row and, with an env map, the frozen
-    env pixel."""
+    env pixel. Static scenes only: a moving area light's row depends on
+    the lane's time."""
     from .intersect import gather_tri_row
     lid = torch.clamp(light_id, min=0).long()
     pack = dict(
@@ -295,9 +297,9 @@ def bake_light(scene, light_id, lprim_id):
     return pack
 
 
-def _light_consts(scene, light_id, lprim_id, pack):
-    """(ltype, pos, emission, inv_area, tri row) from the pack or the
-    scene tables."""
+def _light_consts(scene, light_id, lprim_id, pack, time):
+    """(ltype, pos, emission, inv_area, tri row at `time`) from the pack
+    or the scene tables."""
     if pack is not None:
         return (pack['ltype'], pack['pos'], pack['emission'],
                 pack['inv_area'], pack['tri'])
@@ -307,7 +309,8 @@ def _light_consts(scene, light_id, lprim_id, pack):
     return (scene.light_type[lid], scene.light_pos[lid],
             scene.light_emission[lid], scene.light_inv_area[lid],
             gather_tri_row(scene, torch.clamp(lprim_id, 0,
-                                              scene.num_tris - 1).long()))
+                                              scene.num_tris - 1).long(),
+                           time))
 
 
 def sample_direct(scene, light_id, lprim_id, rnd, pos, time, pack=None,
@@ -322,7 +325,7 @@ def sample_direct(scene, light_id, lprim_id, rnd, pos, time, pack=None,
     Returns dict with dir_to_light, dist, contrib, cos_at_light,
     direct_pdf, emission_pdf, lprim_id, valid."""
     ltype, lpos, lemission, linv_area, tri_row = _light_consts(
-        scene, light_id, lprim_id, pack)
+        scene, light_id, lprim_id, pack, time)
     tri = torch.clamp(lprim_id, min=0)
     ones = torch.ones(pos.shape[:-1], device=pos.device)
 
@@ -414,7 +417,7 @@ def emit(scene, light_id, lprim_id, rnd_pos, rnd_dir, time, pack=None,
     Returns dict with org, dir, emission, cos_at_light, emission_pdf,
     direct_pdf, lprim_id."""
     ltype, lpos, lemission, linv_area, tri_row = _light_consts(
-        scene, light_id, lprim_id, pack)
+        scene, light_id, lprim_id, pack, time)
     tri = torch.clamp(lprim_id, min=0)
     ones = torch.ones(rnd_dir.shape[:-1], device=rnd_dir.device)
 

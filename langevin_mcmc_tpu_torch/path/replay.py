@@ -159,7 +159,8 @@ def replay_path(scene, opts, rec, offset, noise, mode='perturb', bake=None,
     collect_bake=True a third output holds the bake of THIS replay's output
     record; frozen mode consumes it with bake=<that>. Primal values are the
     same either way, and every baked quantity is a constant of the offset
-    in frozen mode.
+    in frozen mode. Static scenes only: on a moving scene each vertex's
+    triangle row is lerped at the record's time on every replay.
 
     Returns (new_rec, result) or (new_rec, result, bake); result =
     dict(contrib, ls_score, ss_score, screen_pos, mis_weight, valid)."""
@@ -183,6 +184,8 @@ def replay_path(scene, opts, rec, offset, noise, mode='perturb', bake=None,
     use_bake = bake is not None
     if use_bake and (collect_bake or not frozen):
         raise ValueError('a bake is consumed by frozen replay only')
+    if (use_bake or collect_bake) and scene.has_motion:
+        raise ValueError('path bake requires a static scene')
     lanes = torch.arange(C, device=dev)
     c_idx = torch.clamp(s - 2, 0, D - 1).long()
     if use_bake:
@@ -275,9 +278,9 @@ def replay_path(scene, opts, rec, offset, noise, mode='perturb', bake=None,
             l_tri = torch.clamp(lv_tri, min=0).long()
             tri = torch.clamp(cv_tri, min=0).long()
             l_raw = bake['lgt_row'][:, l] if use_bake \
-                else gather_tri_row_raw(scene, l_tri)
+                else gather_tri_row_raw(scene, l_tri, time)
             c_raw = bake['cam_row'][:, c] if use_bake \
-                else gather_tri_row_raw(scene, tri)
+                else gather_tri_row_raw(scene, tri, time)
             lpos, lsn, lgn, lst, _ = frozen_from_row(row_dict_from_raw(l_raw),
                                                      lorg, ld)
             pos, sn, gn, st, _ = frozen_from_row(row_dict_from_raw(c_raw),
@@ -296,8 +299,8 @@ def replay_path(scene, opts, rec, offset, noise, mode='perturb', bake=None,
                 torch.cat([l_max, c_max]))
             l_hit, hit = hit2[:C], hit2[C:]
             l_tri, tri = tid2[:C].long(), tid2[C:].long()
-            l_raw = gather_tri_row_raw(scene, l_tri)
-            c_raw = gather_tri_row_raw(scene, tri)
+            l_raw = gather_tri_row_raw(scene, l_tri, time)
+            c_raw = gather_tri_row_raw(scene, tri, time)
             lpos, lsn, lgn, lst = hit_attrs_from_row(
                 row_dict_from_raw(l_raw), lorg, ld, th2[:C], uh2[:C], vh2[:C])
             pos, sn, gn, st = hit_attrs_from_row(
@@ -369,7 +372,8 @@ def replay_path(scene, opts, rec, offset, noise, mode='perturb', bake=None,
         accp_next, acct_next = new_state.acc_prev, new_state.acc_this
         ssj_next = new_state.ss_jacobian
         if lc_now is not None:
-            lc = _light_coord_step(scene, state, tri_last_safe, lc_rnd_in)
+            lc = _light_coord_step(scene, state, tri_last_safe, lc_rnd_in,
+                                   time)
             new_d = _where(lc_now, lc['dir'], new_d)
             b_ok = torch.where(lc_now, lc['valid'], b_ok)
             thr_next = _where(lc_now, lc['throughput'], thr_next)
@@ -514,7 +518,7 @@ def replay_path(scene, opts, rec, offset, noise, mode='perturb', bake=None,
     return rec, result
 
 
-def _light_coord_step(scene, state, tri, u):
+def _light_coord_step(scene, state, tri, u, time):
     """Light-coordinate sampling at a camera vertex: the direction to the
     point of light triangle `tri` at sample parameters u, with the BSDF
     throughput, MIS accumulators and ssJacobian factor the BSDF sampling
@@ -522,7 +526,7 @@ def _light_coord_step(scene, state, tri, u):
     lcJacobian / SamplePdf() convention, so a zero-offset replay gives the
     generated ssScore). No occlusion here: the perturb replay's caller
     shoots the shadow ray. Returns a dict."""
-    pos_l, n_l = light_ops.sample_tri(scene, tri, u)
+    pos_l, n_l = light_ops.sample_tri(scene, tri, u, time)
     to_l = pos_l - state.pos
     d2 = torch.clamp(vm.length_squared(to_l), min=1e-12)
     dist = torch.sqrt(d2)

@@ -441,7 +441,7 @@ def _surf(scene, org, d, hit_out, time, acc_prev, acc_this, throughput,
 # ---------------------------------------------------------------------------
 
 def _light_coords(scene, opts, c, h_ok, hit, hit_light_id, tid, state, org,
-                  lc_jac_prev, h_ss):
+                  time, lc_jac_prev, h_ss):
     """Light-coordinate reparameterisation of an (s, 0) technique whose
     camera vertex c (c > 1) hits an area light: the previous vertex's BSDF
     parameters become the light triangle's sample parameters of the hit
@@ -455,7 +455,7 @@ def _light_coords(scene, opts, c, h_ok, hit, hit_light_id, tid, state, org,
                 torch.zeros((C, 2), device=h_ok.device), h_ss)
     lc_ok = h_ok & hit & (hit_light_id >= 0)
     tri = torch.clamp(tid, min=0)
-    lc_param = light_ops.get_sample_param(scene, tri, state.pos)
+    lc_param = light_ops.get_sample_param(scene, tri, state.pos, time)
     to_prev = state.pos - org
     d2 = torch.clamp(vm.length_squared(to_prev), min=1e-12)
     to_prev = to_prev / torch.sqrt(d2)[..., None]
@@ -624,7 +624,7 @@ def generate_path_bidir(scene, opts, tape: Tape, pixel=None, min_depth=None,
         h_ok = h_ok & hit_light & (c + 1 >= md)
         lc_ok, lc_param, h_ss = _light_coords(scene, opts, c, h_ok, hit,
                                               hit_light_id, tid, state, org,
-                                              lc_jac_prev, h_ss)
+                                              time, lc_jac_prev, h_ss)
         if has_env:
             # the env pixel of the path's env hit, frozen for the replay
             env_pix = light_ops.env_emission(scene, d, time)[0]
@@ -840,7 +840,7 @@ def generate_subpath(scene, opts, tape: Tape, s, t, pixel=None):
         h_ok = h_ok & terminal & (t == 0) & hit_light
         lc_ok, lc_param, h_ss = _light_coords(scene, opts, c, h_ok, hit,
                                               hit_light_id, tid, state, org,
-                                              lc_jac_prev, h_ss)
+                                              time, lc_jac_prev, h_ss)
         if has_env:
             env_pix = light_ops.env_emission(scene, d, time)[0]
             res['env'] = torch.where(is_env_hit & h_ok, env_pix, res['env'])

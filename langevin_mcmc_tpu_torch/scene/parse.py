@@ -1,12 +1,11 @@
 """Mitsuba-0.5-style scene XML parser (port of scene/parse.py).
 
-Supports the ported configuration: perspective sensor + hdrfilm, static
+Supports the node set of the JAX parser: perspective sensor + hdrfilm,
 ``obj`` / ``serialized`` shapes, ``diffuse`` / ``phong`` /
 ``roughdielectric`` (optionally ``twosided``) BSDFs, ``bitmap`` textures
-(inline or referenced by id), ``point`` / ``envmap`` / ``area`` emitters
-and the ``<dpt>`` options block. Motion (animated shapes, camera or env
-map) and the isotropic-only small step (an MCMC block with neither MALA
-nor H2MC) raise ``NotImplementedError`` naming the feature.
+(inline or referenced by id), ``point`` / ``envmap`` / ``area`` emitters,
+two-keyframe ``<animation name="toWorld">`` on shapes, the sensor and the
+env map, and the ``<dpt>`` options block.
 """
 
 import os
@@ -173,15 +172,32 @@ def _parse_bsdf(node, tex_builder, tex_map, scene_dir, twosided=False):
     return spec
 
 
-def _parse_shape_transform(node):
-    m = np.eye(4)
+def _parse_keyframes(node):
+    """The two keyframe matrices of an <animation> node."""
+    ms = [_parse_transform(g) for g in node if g.tag == 'transform']
+    return ms[0], ms[1]
+
+
+def _parse_to_world(node):
+    """A toWorld <transform> or two-keyframe <animation> as an
+    AnimatedTransform."""
+    if node.tag == 'animation':
+        return T.AnimatedTransform(*_parse_keyframes(node))
+    return T.AnimatedTransform(_parse_transform(node))
+
+
+def _parse_shape_transforms(node):
+    """(toWorld at keyframe 0, at keyframe 1, is_moving) of a shape."""
+    tw0 = tw1 = np.eye(4)
+    is_moving = False
     for child in node:
         if child.get('name') == 'toWorld':
-            if child.tag == 'animation':
-                raise NotImplementedError('moving geometry is not ported yet')
             if child.tag == 'transform':
-                m = _parse_transform(child)
-    return m
+                tw0 = tw1 = _parse_transform(child)
+            elif child.tag == 'animation':
+                tw0, tw1 = _parse_keyframes(child)
+                is_moving = True
+    return tw0, tw1, is_moving
 
 
 def _parse_options(node):
@@ -213,11 +229,7 @@ def _parse_options(node):
             continue
         field, conv = keymap[name]
         kw[field] = (val == 'true') if conv is None else conv(val)
-    opts = Options().replace(**kw)
-    if opts.integrator == 'mcmc' and not (opts.mala or opts.h2mc):
-        raise NotImplementedError('isotropic-only small steps (neither MALA '
-                                  'nor H2MC) are not ported yet')
-    return opts
+    return Options().replace(**kw)
 
 
 def parse_scene_host(filename, film_wh=None):
@@ -256,10 +268,7 @@ def parse_scene_host(filename, film_wh=None):
                 elif name == 'fov':
                     fov = float(c.get('value'))
                 elif name == 'toWorld':
-                    if c.tag == 'animation':
-                        raise NotImplementedError(
-                            'camera motion is not ported yet')
-                    to_world = T.AnimatedTransform(_parse_transform(c))
+                    to_world = _parse_to_world(c)
                 elif c.tag == 'film':
                     for g in c:
                         gname = g.get('name')
@@ -302,10 +311,7 @@ def parse_scene_host(filename, film_wh=None):
                     if name == 'filename':
                         env_file = os.path.join(scene_dir, c.get('value'))
                     elif name == 'toWorld':
-                        if c.tag == 'animation':
-                            raise NotImplementedError(
-                                'env map motion is not ported yet')
-                        to_world = T.AnimatedTransform(_parse_transform(c))
+                        to_world = _parse_to_world(c)
                 lights.append(dict(type=LIGHT_ENV, pos=np.zeros(3),
                                    emission=np.zeros(3)))
                 env = dict(image=image_io.read_image(env_file),
@@ -325,7 +331,7 @@ def parse_scene_host(filename, film_wh=None):
                     break
             if mat_id is None:
                 mat_id = add_mat(_BSDFSpec())
-            tw = _parse_shape_transform(child)
+            tw0, tw1, is_moving = _parse_shape_transforms(child)
             fname = None
             shape_index = 0
             flip_normals = face_normals = False
@@ -340,10 +346,10 @@ def parse_scene_host(filename, film_wh=None):
                 elif name == 'faceNormals':
                     face_normals = c.get('value') == 'true'
             if stype == 'serialized':
-                mesh = load_serialized(fname, shape_index, tw, tw, False,
-                                       flip_normals, face_normals)
+                mesh = load_serialized(fname, shape_index, tw0, tw1,
+                                       is_moving, flip_normals, face_normals)
             elif stype == 'obj':
-                mesh = load_obj(fname, tw, tw, False, flip_normals,
+                mesh = load_obj(fname, tw0, tw1, is_moving, flip_normals,
                                 face_normals)
             else:
                 raise ValueError(f'unsupported shape {stype}')
@@ -398,6 +404,7 @@ def assemble_host(cam, meshes, mesh_mats, mesh_lights, mat_specs, lights,
     tri_p = np.concatenate(tri_p, axis=1).astype(f32)
     tri_n = np.concatenate(tri_n, axis=1).astype(f32)
     tri_st = np.concatenate(tri_st, axis=0).astype(f32)
+    has_motion = any(m.is_moving for m in meshes)
 
     L = max(len(lights), 1)
     amax = max([len(meshes[lt['shape']].indices) for lt in lights
@@ -469,7 +476,7 @@ def assemble_host(cam, meshes, mesh_mats, mesh_lights, mat_specs, lights,
         light_ntri=light_ntri, light_inv_area=light_inv_area,
         bsphere_center=center.astype(f32), bsphere_radius=f32(radius),
         isect_B=isect_B, isect_C=isect_C, isect_ok=isect_ok,
-        num_lights=len(lights),
+        num_lights=len(lights), has_motion=has_motion,
         env_light_id=-1 if env is None else env['light_id'],
         camera=cam, textures=tex_builder.host_arrays())
     host.update(env_host_arrays(None if env is None else env['image'],

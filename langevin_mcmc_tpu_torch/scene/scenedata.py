@@ -60,12 +60,12 @@ class ChunkWalkTables:
 
 @dataclasses.dataclass
 class SceneData:
-    tri_p: torch.Tensor        # [2, T, 3, 3] (static: both keyframes equal)
+    tri_p: torch.Tensor        # [2, T, 3, 3] keyframes 0 and 1
     tri_n: torch.Tensor        # [2, T, 3, 3]
     tri_st: torch.Tensor       # [T, 3, 2]
     tri_mat: torch.Tensor      # [T] int32
     tri_light: torch.Tensor    # [T] int32, -1 if not an area light
-    tri_geom: torch.Tensor     # [T, 24] p0 e1 e2 n0..n2 st0..st2
+    tri_geom: torch.Tensor     # [T, 24] p0 e1 e2 n0..n2 st0..st2, keyframe 0
     mat_type: torch.Tensor     # [M] int32
     mat_twosided: torch.Tensor  # [M] bool
     mat_kd: torch.Tensor       # [M, 3] (Kt for roughdielectric)
@@ -108,28 +108,15 @@ class SceneData:
     env_position_pdf: float    # 1 / (pi radius^2), in f32 as the JAX package
     camera: Camera
     textures: TexturePack
-    cw: ChunkWalkTables
+    cw: ChunkWalkTables        # keyframe 0: the static scenes' walks
     sweep: ChunkWalkTables
+    has_motion: bool           # a shape moves: every query is brute force
     num_tris: int
     num_lights: int
     width: int
     height: int
     light_weight_sum: float
     device: torch.device
-
-
-def check_supported(host):
-    """Reject scene content outside the ported configuration: motion."""
-    tp = np.asarray(host['tri_p'])
-    if not np.array_equal(tp[0], tp[1]):
-        raise NotImplementedError('moving geometry is not ported yet')
-    cam = host['camera']
-    if not (np.array_equal(cam['c2w_trans'][0], cam['c2w_trans'][1])
-            and np.array_equal(cam['c2w_quat'][0], cam['c2w_quat'][1])):
-        raise NotImplementedError('camera motion is not ported yet')
-    for k in ('env_to_world_t', 'env_to_world_q'):
-        if not np.array_equal(host[k][0], host[k][1]):
-            raise NotImplementedError('env map motion is not ported yet')
 
 
 def build_env_sample_info(img):
@@ -224,12 +211,13 @@ def build_tri_geom(tri_p0, tri_n0, tri_st):
 
 def build_scene(host, device='cuda'):
     """SceneData on `device` from host arrays (keys: HOST_FIELDS plus
-    'num_lights', 'env_light_id', 'camera', a dict of camera_arrays, and
-    'textures', a dict of TextureBuilder.host_arrays()). The default is
-    the card; a machine
-    without one must ask for device='cpu'."""
+    'num_lights', 'env_light_id', 'has_motion', 'camera', a dict of
+    camera_arrays, and 'textures', a dict of TextureBuilder.host_arrays()).
+    The default is the card; a machine without one must ask for
+    device='cpu'. Both keyframes of tri_p and tri_n go to the device; the
+    packed rows and the walk tables hold keyframe 0, which is all a static
+    scene reads and a moving one never does."""
     from ..ops import chunkwalk, sweep_isect
-    check_supported(host)
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to build the "
@@ -293,7 +281,8 @@ def build_scene(host, device='cuda'):
         bsphere_radius=float(radius),
         env_position_pdf=float(np.float32(1.0 / np.pi) / np.square(radius)),
         camera=cam, textures=texture_pack(host['textures'], device),
-        cw=cw, sweep=sweep, num_tris=int(tri_p.shape[1]),
+        cw=cw, sweep=sweep, has_motion=bool(host['has_motion']),
+        num_tris=int(tri_p.shape[1]),
         num_lights=int(host['num_lights']), width=cam.width,
         height=cam.height, light_weight_sum=float(lw.sum()),
         device=device)

@@ -1,7 +1,7 @@
 """Generated test scenes (numpy only), written as OBJ and EXR files plus a
-Mitsuba-0.5 scene XML whose <dpt> block selects MCMC with MALA or H2MC
-small steps, or plain MC. Both the JAX package's parser and the port's
-read the files.
+Mitsuba-0.5 scene XML whose <dpt> block selects MCMC with MALA, H2MC or
+isotropic-only small steps, or plain MC. Both the JAX package's parser and
+the port's read the files.
 
 * ``box``: a tessellated Phong torus in a closed diffuse box lit by one
   quad area light.
@@ -12,13 +12,17 @@ read the files.
   sky and rays leaving the torus miss every triangle.
 
     python -m langevin_mcmc_tpu_torch.testscenes out_dir [--scene open]
-        [--small] [--kernel mala|h2mc] [--integrator mcmc|mc]
-        [--large-step plain|multiplexed|cache] [--light-coords]
+        [--small] [--kernel mala|h2mc|iso] [--integrator mcmc|mc]
+        [--large-step plain|multiplexed|cache] [--light-coords] [--motion]
 
 --small writes the CPU-sized form: the small torus, small images, a 64x48
-film, 1,024 chains and 4,096 bootstrap samples. --large-step multiplexed
+film, 1,024 chains and 4,096 bootstrap samples. --kernel iso sets neither
+mala nor h2mc (the isotropic-only small step). --large-step multiplexed
 sets largestepmultiplexed; cache sets it and samplecache (cache-seeded
 large steps, with MALA); --light-coords sets uselightcoordinatesampling.
+--motion gives the torus and the quad light two keyframes (a rotation
+about the vertical through their centre and a translation), pans the
+camera and, on the open scene, turns the env map about the vertical.
 """
 
 import argparse
@@ -91,13 +95,49 @@ _LIGHT = _quad((-1.5, -1.5, 5.9), (-1.5, 1.5, 5.9), (1.5, 1.5, 5.9),
 
 
 LARGE_STEPS = ('plain', 'multiplexed', 'cache')
+KERNELS = ('mala', 'h2mc', 'iso')
+
+TORUS_CENTER = (0.0, 0.0, 1.4)
+LIGHT_CENTER = (0.0, 0.0, 5.9)
+# keyframe 1 of --motion: (degrees about the vertical through the centre,
+# translation) of the torus and of the quad light; the camera's target
+# shift; the env map's turn about the vertical (degrees)
+TORUS_MOTION = (15.0, (0.35, 0.2, 0.0))
+LIGHT_MOTION = (30.0, (0.5, -0.4, 0.0))
+CAMERA_PAN = (0.6, 0.0, 0.0)
+ENV_TURN = 25.0
+
+
+def _vec(v):
+    return ', '.join(f'{x:g}' for x in v)
+
+
+def _shape_to_world(motion, center, spin):
+    """The toWorld of a shape: none when static; else keyframe 0 the
+    identity and keyframe 1 a turn of spin[0] degrees about the vertical
+    through center followed by the translation spin[1]."""
+    if not motion:
+        return ''
+    angle, move = spin
+    cx, cy, cz = center
+    to = [c + m for c, m in zip(center, move)]
+    return f'''
+        <animation name="toWorld">
+            <transform><translate x="0"/></transform>
+            <transform>
+                <translate x="{0.0 - cx:g}" y="{0.0 - cy:g}" z="{0.0 - cz:g}"/>
+                <rotate z="1" angle="{angle:g}"/>
+                <translate x="{to[0]:g}" y="{to[1]:g}" z="{to[2]:g}"/>
+            </transform>
+        </animation>'''
 
 
 def _dpt(integrator, max_depth, num_init_samples, kernel, num_chains,
          large_step='plain', light_coords=False):
     flags = ''.join(
         f'\n        <boolean name="{name}" value="true"/>'
-        for name, on in (('largestepmultiplexed', large_step != 'plain'),
+        for name, on in ((kernel, kernel != 'iso'),
+                         ('largestepmultiplexed', large_step != 'plain'),
                          ('samplecache', large_step == 'cache'),
                          ('uselightcoordinatesampling', light_coords))
         if on)
@@ -109,20 +149,31 @@ def _dpt(integrator, max_depth, num_init_samples, kernel, num_chains,
         <integer name="spp" value="4"/>
         <integer name="numchains" value="{num_chains}"/>
         <integer name="numinitsamples" value="{num_init_samples}"/>
-        <integer name="directspp" value="1"/>
-        <boolean name="{kernel}" value="true"/>{flags}
+        <integer name="directspp" value="1"/>{flags}
     </dpt>'''
 
 
-def _sensor(origin, target, width, height, name):
+def _sensor(origin, target, width, height, name, motion=False):
+    """The sensor; with motion its target moves by CAMERA_PAN between the
+    keyframes (a pan)."""
+    look = lambda t: f'<lookat target="{_vec(t)}" origin="{_vec(origin)}" ' \
+        f'up="0, 0, 1"/>'
+    if motion:
+        target1 = [a + b for a, b in zip(target, CAMERA_PAN)]
+        to_world = f'''<animation name="toWorld">
+            <transform>{look(target)}</transform>
+            <transform>{look(target1)}</transform>
+        </animation>'''
+    else:
+        to_world = f'''<transform name="toWorld">
+            {look(target)}
+        </transform>'''
     return f'''    <sensor type="perspective">
         <float name="fov" value="60"/>
         <string name="fovAxis" value="x"/>
         <float name="nearClip" value="0.01"/>
         <float name="farClip" value="100"/>
-        <transform name="toWorld">
-            <lookat target="{target}" origin="{origin}" up="0, 0, 1"/>
-        </transform>
+        {to_world}
         <film type="hdrfilm">
             <integer name="width" value="{width}"/>
             <integer name="height" value="{height}"/>
@@ -134,16 +185,17 @@ def _sensor(origin, target, width, height, name):
 def write_scene(out_dir, small=False, width=1024, height=768, max_depth=8,
                 num_init_samples=300000, kernel='mala', integrator='mcmc',
                 scene='box', num_chains=65536, large_step='plain',
-                light_coords=False):
+                light_coords=False, motion=False):
     """Write the scene's files and scene.xml into out_dir; returns the XML
     path. scene: 'box' or 'open' (see the module docstring). small=True
     gives a ~1,000-triangle torus (and small images) for tests. The <dpt>
     block holds the flagship's spp 4 and directspp 1, num_chains (65,536
     for the flagship), the integrator ('mcmc' or 'mc'), the small-step
-    kernel of 'mcmc' ('mala' or 'h2mc'), the large step ('plain',
+    kernel of 'mcmc' ('mala', 'h2mc' or 'iso'), the large step ('plain',
     'multiplexed' or 'cache': multiplexed and cache-seeded) and
-    light-coordinate sampling."""
-    if kernel not in ('mala', 'h2mc') or integrator not in ('mcmc', 'mc'):
+    light-coordinate sampling. motion: the --motion keyframes (see the
+    module docstring)."""
+    if kernel not in KERNELS or integrator not in ('mcmc', 'mc'):
         raise ValueError(f'kernel {kernel!r}, integrator {integrator!r}')
     if scene not in ('box', 'open') or large_step not in LARGE_STEPS:
         raise ValueError(f'scene {scene!r}, large step {large_step!r}')
@@ -152,7 +204,8 @@ def write_scene(out_dir, small=False, width=1024, height=768, max_depth=8,
     dpt = _dpt(integrator, max_depth, num_init_samples, kernel, num_chains,
                large_step, light_coords)
     if scene == 'open':
-        return _write_open(out_dir, small, (nu, nv), width, height, dpt)
+        return _write_open(out_dir, small, (nu, nv), width, height, dpt,
+                           motion)
     _write_obj(os.path.join(out_dir, 'torus.obj'), *torus_mesh(nu, nv))
     walls = [_FLOOR, _BACK, _FRONT]
     wv = np.concatenate([w[0] for w in walls])
@@ -161,12 +214,14 @@ def write_scene(out_dir, small=False, width=1024, height=768, max_depth=8,
     _write_obj(os.path.join(out_dir, 'left.obj'), *_LEFT)
     _write_obj(os.path.join(out_dir, 'right.obj'), *_RIGHT)
     _write_obj(os.path.join(out_dir, 'light.obj'), *_LIGHT)
+    torus_tw = _shape_to_world(motion, TORUS_CENTER, TORUS_MOTION)
+    light_tw = _shape_to_world(motion, LIGHT_CENTER, LIGHT_MOTION)
     xml = f'''<?xml version='1.0' encoding='utf-8'?>
 <scene version="0.5.0">
 {dpt}
-{_sensor('0, -4.6, 3.2', '0, 0, 1.4', width, height, 'torus')}
+{_sensor((0, -4.6, 3.2), TORUS_CENTER, width, height, 'torus', motion)}
     <shape type="obj">
-        <string name="filename" value="torus.obj"/>
+        <string name="filename" value="torus.obj"/>{torus_tw}
         <bsdf type="phong">
             <spectrum name="diffuseReflectance" value="0.25, 0.3, 0.5"/>
             <spectrum name="specularReflectance" value="0.4, 0.4, 0.4"/>
@@ -192,7 +247,7 @@ def write_scene(out_dir, small=False, width=1024, height=768, max_depth=8,
         </bsdf>
     </shape>
     <shape type="obj">
-        <string name="filename" value="light.obj"/>
+        <string name="filename" value="light.obj"/>{light_tw}
         <bsdf type="diffuse">
             <spectrum name="reflectance" value="0.0, 0.0, 0.0"/>
         </bsdf>
@@ -303,7 +358,8 @@ def env_map(h, w):
     return img.astype(np.float32)
 
 
-def _write_open(out_dir, small, torus_segments, width, height, dpt):
+def _write_open(out_dir, small, torus_segments, width, height, dpt,
+                motion):
     """The open scene's files; returns the XML path."""
     _write_obj(os.path.join(out_dir, 'torus.obj'),
                *torus_mesh(*torus_segments))
@@ -323,15 +379,27 @@ def _write_open(out_dir, small, torus_segments, width, height, dpt):
               sphere_texture(SMALL_SPHERE_TEX if small else SPHERE_TEX))
     write_exr(os.path.join(out_dir, 'sky.exr'),
               env_map(*(SMALL_ENV_SIZE if small else ENV_SIZE)))
+    torus_tw = _shape_to_world(motion, TORUS_CENTER, TORUS_MOTION)
+    light_tw = _shape_to_world(motion, LIGHT_CENTER, LIGHT_MOTION)
+    if motion:
+        env_tw = f'''<animation name="toWorld">
+            <transform><rotate x="1" angle="90"/></transform>
+            <transform>
+                <rotate x="1" angle="90"/>
+                <rotate z="1" angle="{ENV_TURN:g}"/>
+            </transform>
+        </animation>'''
+    else:
+        env_tw = '''<transform name="toWorld">
+            <rotate x="1" angle="90"/>
+        </transform>'''
     xml = f'''<?xml version='1.0' encoding='utf-8'?>
 <scene version="0.5.0">
 {dpt}
-{_sensor('0, -6, 2.2', '0, 0, 1.2', width, height, 'open')}
+{_sensor((0, -6, 2.2), (0, 0, 1.2), width, height, 'open', motion)}
     <emitter type="envmap">
         <string name="filename" value="sky.exr"/>
-        <transform name="toWorld">
-            <rotate x="1" angle="90"/>
-        </transform>
+        {env_tw}
     </emitter>
     <emitter type="point">
         <point name="position" x="-2.5" y="-1.5" z="3.5"/>
@@ -342,7 +410,7 @@ def _write_open(out_dir, small, torus_segments, width, height, dpt):
         <float name="uvscale" value="1"/>
     </texture>
     <shape type="obj">
-        <string name="filename" value="torus.obj"/>
+        <string name="filename" value="torus.obj"/>{torus_tw}
         <bsdf type="roughdielectric">
             <float name="alpha" value="0.1"/>
             <float name="intIOR" value="1.5"/>
@@ -367,7 +435,7 @@ def _write_open(out_dir, small, torus_segments, width, height, dpt):
         </bsdf>
     </shape>
     <shape type="obj">
-        <string name="filename" value="light.obj"/>
+        <string name="filename" value="light.obj"/>{light_tw}
         <bsdf type="diffuse">
             <spectrum name="reflectance" value="0.0, 0.0, 0.0"/>
         </bsdf>
@@ -388,14 +456,16 @@ if __name__ == '__main__':
     ap.add_argument('out_dir')
     ap.add_argument('--scene', choices=('box', 'open'), default='box')
     ap.add_argument('--small', action='store_true')
-    ap.add_argument('--kernel', choices=('mala', 'h2mc'), default='mala')
+    ap.add_argument('--kernel', choices=KERNELS, default='mala')
     ap.add_argument('--integrator', choices=('mcmc', 'mc'), default='mcmc')
     ap.add_argument('--large-step', choices=LARGE_STEPS, default='plain')
     ap.add_argument('--light-coords', action='store_true')
+    ap.add_argument('--motion', action='store_true')
     args = ap.parse_args()
     cut = dict(width=64, height=48, num_chains=1024,
                num_init_samples=4096) if args.small else {}
     print(write_scene(args.out_dir, small=args.small, kernel=args.kernel,
                       integrator=args.integrator, scene=args.scene,
                       large_step=args.large_step,
-                      light_coords=args.light_coords, **cut))
+                      light_coords=args.light_coords, motion=args.motion,
+                      **cut))

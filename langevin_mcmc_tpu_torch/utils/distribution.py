@@ -8,7 +8,7 @@ import torch
 class Distribution1D:
     """CDF table over n weights; queries are batched over u."""
 
-    def __init__(self, weights, device='cpu'):
+    def __init__(self, weights, device):
         f = np.asarray(weights, np.float32)
         n = len(f)
         cdf = np.zeros(n + 1, np.float64)

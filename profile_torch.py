@@ -12,10 +12,15 @@ CONFIG (no CONFIG: box, open and cache):
               cache branch runs;
   cache_cold  path E's configuration without the pre-fill;
   mmlt        the box with multiplexed large steps;
-  mmlt_lc     the box with multiplexed large steps and light coordinates.
-Each is MALA at 1024x768, maxdepth 8, 65,536 chains, with a 65,536-sample
-bootstrap. The chain step is warmed up and timed over 3 steps (no syncs);
-with --time-only that is all, else:
+  mmlt_lc     the box with multiplexed large steps and light coordinates;
+  motion      the open scene with --motion, path F: every ray query is the
+              motion brute force (stage intersect_bruteforce, which the
+              any-hit queries call too), no bake;
+  iso         the box with the isotropic-only chain, path G.
+Each is MALA (iso: the isotropic small step) at 1024x768, maxdepth 8,
+65,536 chains, with a 65,536-sample bootstrap. The chain step is warmed
+up and timed over 3 steps (no syncs); with --time-only that is all,
+else:
   1. times each stage of the step inclusively over 3 steps (host clock
      with a device sync around every call of the wrapped functions). A
      stage is wrapped by replacing its module attribute, so the timer sees
@@ -59,7 +64,9 @@ def main():
                'cache': cache, 'cache_cold': cache,
                'mmlt': dict(scene='box', large_step='multiplexed'),
                'mmlt_lc': dict(scene='box', large_step='multiplexed',
-                               light_coords=True)}
+                               light_coords=True),
+               'motion': dict(scene='open', motion=True),
+               'iso': dict(scene='box', kernel='iso')}
     args = sys.argv[1:]
     time_only = '--time-only' in args
     chosen = [a for a in args if a != '--time-only'] or ['box', 'open',
@@ -74,14 +81,14 @@ def main():
 
 
 def profile_scene(xml, label, card, prefill=False, time_only=False):
-    """The stage and kernel breakdowns of one configuration's MALA chain
-    step (prefill: the cache rows pre-filled from the seed states;
+    """The stage and kernel breakdowns of one configuration's chain step
+    (prefill: the cache rows pre-filled from the seed states;
     time_only: the unsynchronised step time alone)."""
     from langevin_mcmc_tpu_torch.scene.parse import parse_scene
     from langevin_mcmc_tpu_torch.integrators import mlt
     from langevin_mcmc_tpu_torch.mcmc import chain, cache
     from langevin_mcmc_tpu_torch.path import replay, trace
-    from langevin_mcmc_tpu_torch.ops import chunkwalk
+    from langevin_mcmc_tpu_torch.ops import chunkwalk, intersect
     import chip_smoke
 
     scene, opts, _ = parse_scene(xml, device='cuda')
@@ -116,6 +123,7 @@ def profile_scene(xml, label, card, prefill=False, time_only=False):
         calls = collections.Counter()
         stages = [(chain, 'large_step'), (chain, 'large_step_multiplexed'),
                   (chain, 'large_step_cache'), (chain, 'small_step_mala'),
+                  (chain, 'small_step_iso'),
                   (chain, '_perturb_and_grad'), (replay, 'replay_path'),
                   (replay, 'path_grad'), (replay, 'bake_frozen'),
                   (trace, 'generate_path_bidir'),
@@ -123,6 +131,7 @@ def profile_scene(xml, label, card, prefill=False, time_only=False):
                   (cache, 'eval_pdf_cache'), (cache, 'sample_cache'),
                   (cache, 'push_batch'), (chunkwalk, 'sort_rays'),
                   (chunkwalk, 'walk_staged'), (chunkwalk, 'walk_resident'),
+                  (intersect, 'intersect_bruteforce'),
                   (mlt, 'splat')]
         saved = []
         for mod, name in stages:

@@ -102,7 +102,8 @@ def chains():
     jst = dataclasses.replace(jst, valid=jnp.asarray(valid))
     tst = chain.init_chain_state(trec, *(_t(seeds[k]) for k in args), jo)
     tst = dataclasses.replace(tst, valid=_t(valid))
-    return js, jo, ts, jst, tst, JDist(LENGTH_W), Distribution1D(LENGTH_W)
+    return (js, jo, ts, jst, tst, JDist(LENGTH_W),
+            Distribution1D(LENGTH_W, 'cpu'))
 
 
 def _tape(key, n):

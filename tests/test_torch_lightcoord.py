@@ -75,8 +75,9 @@ def test_get_sample_param_inverts_sample_tri(lcbox):
     rng = np.random.default_rng(0)
     tri = torch.as_tensor(rng.choice(light_tris, 256))
     u = torch.as_tensor(rng.uniform(0.05, 0.95, (256, 2)).astype(np.float32))
-    pos, _ = lights.sample_tri(ts, tri, u)
-    u2 = lights.get_sample_param(ts, tri, pos)
+    time = torch.zeros(256)
+    pos, _ = lights.sample_tri(ts, tri, u, time)
+    u2 = lights.get_sample_param(ts, tri, pos, time)
     np.testing.assert_allclose(to_np(u2), to_np(u), rtol=1e-4, atol=1e-4)
     jtri = jnp.asarray(to_np(tri))
     zt = jnp.zeros(256)

@@ -91,7 +91,7 @@ def test_distribution_matches_jax():
     """The path-length distribution bootstrap builds (Distribution1D)."""
     w = np.array([0.0, 3.0, 1.0, 0.0, 6.0, 2.0])
     u = np.random.default_rng(4).random(500).astype(np.float32)
-    dj, dt = JDist(w), Distribution1D(w)
+    dj, dt = JDist(w), Distribution1D(w, 'cpu')
     ij, pj = dj.sample_discrete(jnp.asarray(u))
     it, pt = dt.sample_discrete(torch.as_tensor(u))
     np.testing.assert_array_equal(to_np(it), np.asarray(ij))

@@ -87,8 +87,8 @@ def test_generated_scene_sizes(tmp_path):
 
 
 _CUT = {
-    # the features of _PORTED are ported since and now parse (see
-    # test_cut_features_raise)
+    # features the port once cut; every one is ported since and now parses
+    # (see test_cut_features_raise)
     'roughdielectric BSDF': '<shape type="obj"><string name="filename" '
     'value="f.obj"/><bsdf type="roughdielectric"/></shape>',
     'bitmap textures': '<texture type="bitmap" id="t"><string '
@@ -97,32 +97,26 @@ _CUT = {
     'envmap emitters': '<emitter type="envmap"><string name="filename" '
     'value="t.exr"/></emitter>',
     'moving geometry': '<shape type="obj"><string name="filename" '
-    'value="f.obj"/><animation name="toWorld"/></shape>',
-    # H2MC is ported; an MCMC block with neither MALA nor H2MC (the
-    # isotropic-only small step) is what is still cut
-    'H2MC': '<dpt><string name="integrator" value="mcmc"/></dpt>',
+    'value="f.obj"/><animation name="toWorld"><transform><translate '
+    'z="0"/></transform><transform><translate z="1"/></transform>'
+    '</animation></shape>',
+    # an MCMC block with neither MALA nor H2MC
+    'isotropic-only small steps': '<dpt><string name="integrator" '
+    'value="mcmc"/></dpt>',
     'multiplexed large steps': '<dpt><boolean name="mala" value="true"/>'
     '<boolean name="largestepmultiplexed" value="true"/></dpt>',
     'light-coordinate sampling': '<dpt><boolean name="mala" value="true"/>'
     '<boolean name="uselightcoordinatesampling" value="true"/></dpt>',
 }
-_PORTED = ('roughdielectric BSDF', 'bitmap textures', 'point emitters',
-           'envmap emitters', 'multiplexed large steps',
-           'light-coordinate sampling')
 
 
 @pytest.mark.parametrize('feature', sorted(_CUT))
 def test_cut_features_raise(tmp_path, feature):
-    """A feature still cut raises NotImplementedError naming it; one
-    ported since (_PORTED) parses in a scene with a sensor and a quad."""
-    xml = os.path.join(tmp_path, 's.xml')
-    if feature not in _PORTED:
-        with open(xml, 'w') as f:
-            f.write(f'<scene version="0.5.0">{_CUT[feature]}</scene>')
-        with pytest.raises(NotImplementedError, match=feature):
-            parse_scene(xml, device='cpu')
-        return
+    """A feature the port once cut parses, in a scene with a sensor and a
+    quad, and sets what the JAX parser sets: the options, has_motion, the
+    triangles of both keyframes and the light count."""
     from langevin_mcmc_tpu_torch.utils.image_io import write_exr
+    xml = os.path.join(tmp_path, 's.xml')
     testscenes._write_obj(os.path.join(tmp_path, 'f.obj'),
                           *testscenes._FLOOR)
     write_exr(os.path.join(tmp_path, 't.exr'),
@@ -134,5 +128,15 @@ def test_cut_features_raise(tmp_path, feature):
                 '<integer name="height" value="6"/></film></sensor>'
                 f'{_CUT[feature]}<shape type="obj"><string name="filename" '
                 'value="f.obj"/></shape></scene>')
-    scene, _, _ = parse_scene(xml, device='cpu')
-    assert scene.num_tris >= 2
+    scene, opts, _ = parse_scene(xml, device='cpu')
+    js, jo, _ = jax_parse(xml)
+    assert scene.num_tris == js.num_tris >= 2
+    assert scene.num_lights == js.num_lights
+    assert scene.has_motion == js.has_motion
+    assert dataclasses.asdict(opts) == dataclasses.asdict(jo)
+    np.testing.assert_allclose(to_np(scene.tri_p), np.asarray(js.tri_p),
+                               rtol=1e-6, atol=1e-6)
+    if feature == 'moving geometry':
+        assert scene.has_motion
+    if feature == 'isotropic-only small steps':
+        assert opts.integrator == 'mcmc' and not (opts.mala or opts.h2mc)

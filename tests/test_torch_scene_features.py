@@ -9,10 +9,13 @@ bitmap textures, rough dielectric) in the port against the JAX package.
 * eval_texture at random st, wrapped past [0, 1], equals the JAX lookup
   within 1e-6 relative (rtol 1e-6, atol 1e-7);
 * the vecmath helpers the new branches call equal JAX's within 1e-6;
-* the parser: the features ported here parse; motion and the samplers
-  still raise NotImplementedError naming the feature.
+* the parser: the features ported here parse, and so do the ones ported
+  since (motion of shapes, camera and env map, the large-step samplers,
+  light coordinates, the isotropic-only small step), each setting what
+  the JAX parser sets.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -198,8 +201,9 @@ _MALA = '<dpt><boolean name="mala" value="true"/>{}</dpt>'
      'isotropic-only small steps'),
 ])
 def test_unported_features_still_raise(open_xml, tmp_path, case, words):
-    """A feature still cut raises naming it; the three <dpt> booleans
-    ported since (_PORTED_SINCE) parse and set their option."""
+    """Each feature the port once cut now parses and sets what the JAX
+    parser sets: the options, has_motion, both keyframes of the camera,
+    the env map and the triangles."""
     d = os.path.dirname(open_xml)
     for f in ('floor.obj', 'sky.exr'):
         os.symlink(os.path.join(d, f), tmp_path / f)
@@ -207,12 +211,30 @@ def test_unported_features_still_raise(open_xml, tmp_path, case, words):
     kw.update(case)
     xml = tmp_path / 'scene.xml'
     xml.write_text(_SCENE_HEAD.format(**kw))
-    if words in _PORTED_SINCE:
-        _, opts, _ = parse_scene(str(xml), device='cpu')
+    host, opts, _ = parse_scene_host(str(xml))
+    js, jo, _ = jax_parse(str(xml))
+    assert dataclasses.asdict(opts) == dataclasses.asdict(jo)
+    assert host['has_motion'] == js.has_motion
+    for k in ('tri_p', 'tri_n', 'env_to_world_t', 'env_to_world_q',
+              'env_to_light_q'):
+        np.testing.assert_allclose(np.asarray(host[k], np.float64),
+                                   np.asarray(getattr(js, k), np.float64),
+                                   rtol=1e-6, atol=1e-6, err_msg=k)
+    for k in ('c2w_trans', 'c2w_quat', 'w2c_quat'):
+        np.testing.assert_allclose(np.asarray(host['camera'][k]),
+                                   np.asarray(getattr(js.camera, k)),
+                                   rtol=1e-6, atol=1e-6, err_msg=k)
+    moving = lambda a: not np.allclose(np.asarray(a)[0], np.asarray(a)[1])
+    if words == 'moving geometry':
+        assert host['has_motion'] and moving(host['tri_p'])
+    elif words == 'camera motion':
+        assert moving(host['camera']['c2w_quat'])
+    elif words == 'env map motion':
+        assert moving(host['env_to_world_q'])
+    elif words == 'isotropic-only small steps':
+        assert opts.integrator == 'mcmc' and not (opts.mala or opts.h2mc)
+    else:
         assert getattr(opts, _PORTED_SINCE[words]) and opts.mala
-        return
-    with pytest.raises(NotImplementedError, match=words):
-        parse_scene(str(xml), device='cpu')
 
 
 _PORTED_SINCE = {'multiplexed large steps': 'large_step_multiplexed',

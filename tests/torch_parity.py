@@ -19,6 +19,7 @@ def jax_scene_to_numpy(scene):
     d = {k: np.asarray(getattr(scene, k)) for k in HOST_FIELDS}
     d['num_lights'] = scene.num_lights
     d['env_light_id'] = scene.env_light_id
+    d['has_motion'] = scene.has_motion
     d['camera'] = {k: np.asarray(getattr(scene.camera, k))
                    for k in interop.CAMERA_FIELDS}
     tex = scene.textures
