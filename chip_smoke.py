@@ -31,28 +31,53 @@ Phases (any failure exits non-zero before the last line is printed):
      plus rays from the x1000 bounding sphere: the env map's emission rays
      and rays aimed at the scene) against their plain version, with time,
      plain time, bound and the share of live rays that miss;
-  5. path generation on the card against the CPU plain path on the small
+  5. the BVH (ops/bvh.py, csrc/bvh.cu) on the box, the open scene and the
+     moving open scene: build_bvh (numpy) and build_bvh_native seconds;
+     the kernel, closest and any hit, against its plain version
+     (traverse_reference) bit for bit on the rays of phases 3 and 4 and
+     of path F's brute-force query, at 65,536 rays and the large step's
+     4,261, with its time, the plain version's (one run), the inner nodes
+     and triangles a live ray (counted by the plain version) and its
+     bound; beside K1/K2 on the same static rays (kernel alone and whole
+     query) and the motion brute force on the same moving rays;
+  6. a one-rank NCCL process group on the card: global_sum, the cache
+     merger (its all-gather of CUDA tensors) against merge_stacked on the
+     CPU bit for bit, and the film all-reduce, each timed;
+  7. path generation on the card against the CPU plain path on the small
      generated box and open scenes and on the small moving open scene
      (same tape);
-  6. path A, the MALA render through the CLI entry point: 1024x768,
+  8. path A, the MALA render through the CLI entry point: 1024x768,
      maxdepth 8, 65,536 chains, 300,000 bootstrap samples, directspp 1,
      --spp 1 (12 chain iterations); it runs K1/K2;
-  7. path B, the same configuration with H2MC small steps and
-     LMCMC_ISECT_BACKEND=pallas, so it runs K4; the ratio of the two chain
-     loops' proposals/s is the H2MC/MALA cost ratio at the same tuning;
-  8. path C, the MC integrator on the flagship scene (--spp 1) with
+  9. path B, the same configuration with H2MC small steps and
+     LMCMC_ISECT_BACKEND=pallas, so it runs K4, through render_mlt cut to
+     4 chain iterations (PATH_B_STEPS; an H2MC iteration takes ~15-21 s);
+     the ratio of the two chain loops' proposals/s is the H2MC/MALA cost
+     ratio at the same tuning;
+ 10. path C, the MC integrator on the flagship scene (--spp 1) with
      LMC_CW_VMEM_BYTES=6291456, so it runs K3;
-  9. path D, path A's configuration on the open scene; it runs K1/K2;
- 10. path E, path A's configuration with multiplexed and cache-seeded large
+ 11. path D, path A's configuration on the open scene; it runs K1/K2;
+ 12. path E, path A's configuration with multiplexed and cache-seeded large
      steps and light-coordinate sampling (largestepmultiplexed, samplecache,
      uselightcoordinatesampling): generate_subpath and the cache branch's
      perturb replay send their ray queries through K1/K2. It prints the
      large-step lanes of each branch, the cache rows that filled and the
      generated lanes that carried light-coordinate parameters;
- 11. the cache phase: path E's state bootstrapped at full width, cache rows
+ 13. the cache phase: path E's state bootstrapped at full width, cache rows
      pre-filled from the seed states (paths included), a few chain
      iterations; the cache branch must run on some lanes;
- 12. path F, path D's configuration with --motion (the torus and the quad
+ 14. path H, path E's configuration with --spp 6 rendered by two ranks of
+     the CLI (--coordinator 127.0.0.1:<free port> --num-processes 2
+     --process-id 0/1; each rank is `python3 chip_smoke.py --rank OUT
+     CLI-ARGS...`) that share the card, so their collectives take gloo:
+     32,768 chains and 150,000 bootstrap samples a rank, 72 iterations in
+     calls of 16, one cache merge. The ranks' reduced chain films must be
+     bit-identical and their b equal, their final films equal to rtol
+     1e-5, each film checked, K1/K2 launched on both; per rank its phase
+     seconds, ms an iteration, proposals/s, acceptance, peak memory, the
+     merge's ms and bytes and the film reduce's ms, and the two ranks'
+     summed proposals/s over path E's;
+ 15. path F, path D's configuration with --motion (the torus and the quad
      light turn and move between two keyframes, the camera pans, the env
      map turns): every ray query is the motion brute force in torch (no
      kernel), the frozen replay and path_grad run without a bake. Before
@@ -61,9 +86,13 @@ Phases (any failure exits non-zero before the last line is printed):
      of 2^20, 2^22 and 2^24 ray-triangle pairs, each checked equal); after
      it, their share of path F's iteration and the brute force's
      host-clock share of the render; no walk kernel may launch;
- 13. path G, path A's configuration with neither mala nor h2mc: the
-     isotropic-only chain through K1/K2.
-Phase 5 also holds generate_subpath with light-coordinate sampling (mixed
+ 16. path G, path A's configuration with neither mala nor h2mc: the
+     isotropic-only chain through K1/K2;
+ 17. path I, path F's configuration with a BVH attached, through the API
+     (parse_scene, attach_bvh, render_mlt; neither package's CLI attaches
+     one): every query must take the BVH kernel (no brute-force query, no
+     walk kernel); its proposals/s over path F's and path D's.
+Phase 7 also holds generate_subpath with light-coordinate sampling (mixed
 (s, t) per lane) on the card against the CPU.
 Each render's film must be finite, non-negative, non-zero and 768x1024x3
 (path D's and path F's top rows, the sky, lit too), and each kernel must
@@ -80,7 +109,12 @@ test: 256 rays x all chunks per block) over the 67 TFLOP/s f32 peak and
 its bytes (each input read once, each output written once) over 3.35 TB/s
 (H100 SXM data sheet). No PyTorch call
 computes a closest-hit ray query, so library_ms is null. The open scene's
-K1/K2 rows (names ending in _open) also carry miss_share.
+K1/K2 rows (names ending in _open) also carry miss_share. The BVH rows
+(bvh_{closest,any}_hit_{box,open,motion}, "pallas": false: the JAX
+traversal is an XLA loop, not a Pallas kernel) carry their launches on
+path I, and a bound from the work the plain version counts: 25 f32
+operations per ray-box test (two per inner node), 61 per Moller-Trumbore
+test (28 more for a moving triangle's lerp).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -99,8 +133,11 @@ OUT = os.path.join(HERE, 'smoke_out', 'chip_smoke')
 INIT_SAMPLES = 300000   # numinitsamples of the flagship render
 CHUNK = 32768           # wavefront of the bootstrap and direct passes
 RESIDENT_BYTES = 6291456  # LMC_CW_VMEM_BYTES of path C
+PATH_B_STEPS = 4        # path B's chain iterations (H2MC: ~15-21 s each)
 OPS_PER_TEST = 40       # f32 operations of one ray-triangle test
 OPS_PER_SLAB = 25       # f32 operations of one ray-AABB slab test
+OPS_PER_MT = 61         # f32 operations of one Moller-Trumbore test
+OPS_PER_LERP = 28       # f32 operations of one triangle's vertex lerp
 PEAK_F32 = 67e12        # H100 SXM f32 peak, FLOP/s
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3, bytes/s
 
@@ -679,22 +716,38 @@ class BruteForceCounter:
         intersect.intersect_bruteforce = self.orig
 
 
-def render(label, xml, env, sky=False):
-    """One render through the CLI with env set around it. Checks the film
-    (sky: its top rows must be lit too); returns (CLI result, launch counts
-    of this render by row key)."""
+def render(label, xml, env, sky=False, num_steps=None):
+    """One render through the CLI with env set around it (with num_steps,
+    through render_mlt, cut to that many chain iterations). Checks the
+    film (sky: its top rows must be lit too); returns (the CLI's result,
+    launch counts of this render by row key)."""
     from langevin_mcmc_tpu_torch.__main__ import main as cli_main
+    from langevin_mcmc_tpu_torch.integrators.mlt import render_mlt
     from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
     from langevin_mcmc_tpu_torch.ops import sweep_isect as sw
+    from langevin_mcmc_tpu_torch.scene.parse import parse_scene
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     torch.cuda.reset_peak_memory_stats()
     cw.reset_launch_counts()
     sw.reset_launch_counts()
     try:
-        res = cli_main([xml, '--spp', '1', '--chunk', str(CHUNK),
-                        '--output-dir', os.path.join(OUT, label),
-                        '--device', 'cuda'])[0]
+        if num_steps is None:
+            res = cli_main([xml, '--spp', '1', '--chunk', str(CHUNK),
+                            '--output-dir', os.path.join(OUT, label),
+                            '--device', 'cuda'])[0]
+        else:
+            t0 = time.time()
+            scene, opts, _ = parse_scene(xml, device='cuda')
+            gen = torch.Generator(device='cuda').manual_seed(
+                opts.seed_offset)
+            res = dict(opts=opts, timings={})
+            with torch.no_grad():
+                film, res['b'] = render_mlt(scene, opts, gen,
+                                            num_steps=num_steps, chunk=CHUNK,
+                                            timings=res['timings'])
+            res['film'] = film.cpu().numpy()
+            res['seconds'] = time.time() - t0
     finally:
         for k, v in saved.items():
             if v is None:
@@ -703,11 +756,17 @@ def render(label, xml, env, sky=False):
                 os.environ[k] = v
     launches = dict(cw.launch_counts)
     launches.update({'sweep_' + k: v for k, v in sw.launch_counts.items()})
-    film = res['film']
     log(f'{label}: {env or "default backends"}; total {res["seconds"]:.2f} '
         f's, peak device memory '
         f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
     log(f'{label}: kernel launches {launches}')
+    check_film(label, res['film'], sky)
+    return res, launches
+
+
+def check_film(label, film, sky=False):
+    """The film must be finite, non-negative, non-zero and 768x1024x3 (sky:
+    its top rows lit too)."""
     log(f'{label}: film {film.shape}, mean {film.mean():.6g}, min '
         f'{film.min():.6g}, max {film.max():.6g}')
     if film.shape != (768, 1024, 3):
@@ -723,7 +782,6 @@ def render(label, xml, env, sky=False):
         log(f'{label}: sky (mean of the top 32 rows) {top:.6g}')
         if not top > 0.0:
             raise AssertionError(f'{label}: the sky is dark')
-    return res, launches
 
 
 def chain_rate(label, res):
@@ -837,6 +895,399 @@ def cache_phase(xml, steps=4):
         raise AssertionError('cache phase: film not finite and non-negative')
 
 
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def host_ms(fn, repeats=3):
+    """Median milliseconds of fn() over repeats on the host clock, each
+    ending in a device sync, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.time() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def push_random(cache, opts, seed):
+    """cache with a seeded batch of random entries pushed into its rows
+    (about a third of each row's slots)."""
+    from langevin_mcmc_tpu_torch.mcmc import cache as cache_mod
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    Dm = 2 * opts.max_depth
+    n = opts.pss_max_size * (opts.pss_max_length + 1) // 3
+    u = lambda *sh: torch.rand(sh, generator=g, device='cuda')
+    dims = torch.randint(opts.pss_min_length, opts.pss_max_length + 1, (n,),
+                         generator=g, device='cuda', dtype=torch.int32)
+    return cache_mod.push_batch(
+        cache, dims, u(n, Dm), u(n, Dm), u(n, Dm), u(n) + 0.1,
+        torch.ones(n, dtype=torch.bool, device='cuda'), opts,
+        s_tag=dims // 2, t_tag=dims - dims // 2)
+
+
+def nccl_phase(xml_e):
+    """A one-rank NCCL process group on the card: global_sum, the cache
+    merger (its all-gather of CUDA tensors) on two caches of path E's
+    cache shape with different tails, twice, each time against
+    merge_stacked on the CPU bit for bit, and the film all-reduce. Prints
+    the backend and each collective's ms."""
+    import torch.distributed as dist
+    from langevin_mcmc_tpu_torch.mcmc import cache as cache_mod
+    from langevin_mcmc_tpu_torch.parallel import multihost
+    from langevin_mcmc_tpu_torch.parallel import shardmap_step as sm
+    from langevin_mcmc_tpu_torch.scene.parse import parse_scene_host
+    from langevin_mcmc_tpu_torch.utils.tree import tree_leaves
+    opts = parse_scene_host(xml_e)[1]
+    dist.init_process_group('nccl', init_method=f'tcp://127.0.0.1:'
+                            f'{free_port()}', world_size=1, rank=0)
+    try:
+        x = np.arange(40, dtype=np.float64) * 0.1
+        if not np.array_equal(multihost.global_sum(x), x):
+            raise AssertionError('NCCL global_sum at one rank changed its '
+                                 'input')
+        ms_sum = host_ms(lambda: multihost.global_sum(x))
+        empty = cache_mod.make_cache(opts, 2 * opts.max_depth, 'cuda')
+        caches = [push_random(empty, opts, 11), push_random(empty, opts, 12)]
+        prev = torch.zeros_like(empty.count)
+        for rnd in range(2):
+            want = sm.merge_stacked(sm.stack_cache(caches, 'cpu'), prev.cpu())
+            got, count = sm.merge_caches(caches, prev)
+            w = tree_leaves(want)
+            for c in got:
+                if not all(torch.equal(a.cpu(), b)
+                           for a, b in zip(tree_leaves(c), w)):
+                    raise AssertionError(f'NCCL cache merge, round {rnd}: '
+                                         f'differs from merge_stacked on '
+                                         f'the CPU')
+            ms = host_ms(lambda: sm.merge_caches(caches, prev))
+            gathered = sum(a.numel() * a.element_size() for a in w) * 2
+            log(f'NCCL phase: cache merge round {rnd}, 2 shards (rows '
+                f'{prev.tolist()} -> {count.tolist()}): equal to '
+                f'merge_stacked on the CPU bit for bit; {ms:.3f} ms, '
+                f'{gathered / 2**20:.1f} MiB gathered')
+            prev = count
+            caches = [push_random(c, opts, 21 + 2 * rnd + i)
+                      for i, c in enumerate(got)]
+        film = torch.rand((768, 1024, 3), device='cuda')
+        ref = film.clone()
+        multihost.all_reduce_sum(film)
+        if not torch.equal(film, ref):
+            raise AssertionError('NCCL all-reduce at one rank changed the '
+                                 'film')
+        ms_red = cuda_ms(lambda: multihost.all_reduce_sum(film))
+        log(f'NCCL phase: backend {multihost.backend()}, world '
+            f'{multihost.process_count()}; global_sum {ms_sum:.3f} ms, film '
+            f'all-reduce (768x1024x3 f32) {ms_red:.3f} ms')
+    finally:
+        dist.destroy_process_group()
+
+
+def bvh_row(name, scene, rays, any_hit, static_rows):
+    """The BVH kernel on these rays against its plain version (bit for
+    bit), timed, with its bound from the nodes and triangles the plain
+    version visits; on a static scene beside K1/K2 on the same rays
+    (kernel alone, and the whole queries). Returns the row of the kernels
+    JSON line."""
+    from langevin_mcmc_tpu_torch.ops import bvh
+    from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
+    org, d, tm, mn, mx = rays
+    tabs = (scene.bvh_nodes, scene.bvh_prim_ids, scene.tri_p)
+    kernel = lambda: bvh.traverse(*tabs, *rays, any_hit, scene.has_motion)
+    stats = {}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    plain_out = bvh.traverse_reference(*tabs, *rays, any_hit,
+                                       scene.has_motion, stats=stats)
+    ev[1].record()
+    got = kernel()
+    torch.cuda.synchronize()
+    # one plain run, timed by CUDA events: it takes seconds on the moving
+    # scene, and its host syncs (a compaction each round) are in the span
+    plain_ms = ev[0].elapsed_time(ev[1])
+    if any_hit:
+        want = torch.isfinite(plain_out)
+        if not torch.equal(got, want):
+            raise AssertionError(f'{name}: occlusion differs on '
+                                 f'{(got != want).sum().item()} rays')
+    else:
+        for a, b, f in zip(got, plain_out, 'tiuv'):
+            if not torch.equal(a, b):
+                raise AssertionError(f'{name}: {f} differs on '
+                                     f'{(a != b).sum().item()} rays')
+    ms = cuda_ms(kernel)
+    live = mx >= mn
+    n_live = int(live.sum())
+    # the bound counts every ray's work (a dead ray still tests the root's
+    # children); the per-ray counts are over the live rays
+    ops = 2 * OPS_PER_SLAB * int(stats['inner'].sum()) + int(
+        stats['tests'].sum()) * (OPS_PER_MT
+                                 + (OPS_PER_LERP if scene.has_motion else 0))
+    inner = int(stats['inner'][live].sum())
+    tests = int(stats['tests'][live].sum())
+    tri_bytes = nbytes(scene.tri_p) // (1 if scene.has_motion else 2)
+    in_bytes = nbytes(scene.bvh_nodes, scene.bvh_prim_ids, *rays) + tri_bytes
+    out_bytes = org.shape[0] * (1 if any_hit else 16)
+    ops_ms = ops / PEAK_F32 * 1e3
+    bytes_ms = (in_bytes + out_bytes) / PEAK_BYTES * 1e3
+    bound_ms, bound_by = (ops_ms, 'operations') if ops_ms >= bytes_ms \
+        else (bytes_ms, 'bytes')
+    line = (f'{name}, {org.shape[0]} rays ({n_live} live): equal to the '
+            f'plain version; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, '
+            f'{inner / n_live:.2f} inner nodes and {tests / n_live:.2f} '
+            f'triangles a live ray, bound {bound_ms:.4f} ms ({bound_by})')
+    row = dict(name=name, route='cuda',
+               source='langevin_mcmc_tpu_torch/csrc/bvh.cu',
+               replaces='langevin_mcmc_tpu/ops/bvh.py:146', pallas=False,
+               max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None,
+               inner_per_live_ray=inner / n_live,
+               tests_per_live_ray=tests / n_live)
+    if static_rows:
+        (o, dd, rng), order = cw.sort_rays(scene.cw, org, d, mn, mx)
+        cw_tabs = (scene.cw.pack, scene.cw.ids, scene.cw.chunk_lo,
+                   scene.cw.chunk_hi)
+        k1 = cuda_ms(lambda: cw.walk_staged(*cw_tabs, o, dd, rng, any_hit))
+        q_fn = bvh.occluded_bvh if any_hit else bvh.intersect_bvh
+        c_fn = cw.occluded_chunkwalk if any_hit else cw.intersect_chunkwalk
+        q_bvh = cuda_ms(lambda: q_fn(scene, *rays))
+        q_cw = cuda_ms(lambda: c_fn(scene, *rays))
+        line += (f'; {"K2" if any_hit else "K1"} kernel on the same rays '
+                 f'{k1:.3f} ms; whole query: BVH {q_bvh:.3f} ms, chunk walk '
+                 f'(sort_rays + kernel) {q_cw:.3f} ms')
+        row.update(k_walk_ms=k1, query_ms=q_bvh, query_chunkwalk_ms=q_cw)
+    log(line)
+    return row
+
+
+def bvh_phase(xml, xml_open, xml_f):
+    """The BVH on the box, the open scene and the moving open scene: its
+    numpy and native builds timed; the kernel against its plain version
+    (closest and any hit, at 65,536 and 4,352 rays; the rays of
+    check_kernels, open_rows and motion_queries); on the moving scene the
+    whole BVH query beside the motion brute force. Returns the rows of
+    the kernels JSON line (65,536 rays), keyed by (variant, scene)."""
+    from langevin_mcmc_tpu_torch.native import build_bvh_native
+    from langevin_mcmc_tpu_torch.native import load_library as load_native
+    from langevin_mcmc_tpu_torch.ops import bvh, intersect
+    from langevin_mcmc_tpu_torch.scene.parse import parse_scene
+    rows = {}
+    large = int(0.05 * 65536 * 1.3) + 1
+    for tag, path in (('box', xml), ('open', xml_open), ('motion', xml_f)):
+        scene, _, _ = parse_scene(path, device='cuda')
+        t0 = time.time()
+        scene = bvh.attach_bvh(scene)
+        t_np = time.time() - t0
+        tp = scene.tri_p.cpu().numpy()
+        load_native()       # the g++ build at first use, not timed here
+        t0 = time.time()
+        nodes, prims = build_bvh_native(tp.min(axis=(0, 2)),
+                                        tp.max(axis=(0, 2)))
+        t_nat = time.time() - t0
+        same = np.array_equal(nodes, scene.bvh_nodes.cpu().numpy()) and \
+            np.array_equal(prims, scene.bvh_prim_ids.cpu().numpy())
+        log(f'BVH {tag}: {scene.num_tris} triangles, '
+            f'{scene.bvh_nodes.shape[0]} nodes, '
+            f'{bvh.tree_depth(scene.bvh_nodes.cpu().numpy())} levels; '
+            f'build_bvh (numpy) {t_np:.2f} s, build_bvh_native {t_nat:.3f} s '
+            f'(same nodes: {same})')
+        if tag == 'box':
+            org, d, mn, mx = kernel_rays(scene, 65536, seed=7)
+            tm = torch.zeros_like(mn)
+        elif tag == 'open':
+            near = kernel_rays(scene, 65536 - 16384, seed=17)
+            far = far_rays(scene, 16384, seed=18)
+            org, d, mn, mx = (torch.cat([a, b]) for a, b in zip(near, far))
+            tm = torch.zeros_like(mn)
+        else:
+            org, d, tm, mn, mx = motion_rays(scene, 65536, seed=23)
+        for n in (65536, large):
+            rays = tuple(x[:n].contiguous() for x in (org, d, tm, mn, mx))
+            for any_hit in (False, True):
+                key = 'any_hit' if any_hit else 'closest_hit'
+                row = bvh_row(f'bvh_{key}_{tag}', scene, rays, any_hit,
+                              tag != 'motion')
+                if n == 65536:
+                    rows[key, tag] = row
+        if tag == 'motion':
+            rays = (org, d, tm, mn, mx)
+            q = {}
+            for a, fb, fq in ((False, intersect.intersect_bruteforce,
+                               bvh.intersect_bvh),
+                              (True, intersect.occluded_bruteforce,
+                               bvh.occluded_bvh)):
+                q[a] = (cuda_ms(lambda: fq(scene, *rays)),
+                        cuda_ms(lambda: fb(scene, *rays), 1))
+            log(f'BVH motion, 65,536 rays: whole query closest / any hit '
+                f'BVH {q[False][0]:.3f} / {q[True][0]:.3f} ms, motion brute '
+                f'force {q[False][1]:.1f} / {q[True][1]:.1f} ms: '
+                f'{q[False][1] / q[False][0]:.1f}x / '
+                f'{q[True][1] / q[True][0]:.1f}x')
+        del scene
+    return rows
+
+
+def rank_main(argv):
+    """One rank of path H (chip_smoke.py --rank OUT CLI-ARGS...): the CLI
+    with its multi-process flags; saves the film, the reduced chain film,
+    b, the timings, the walk launches and the peak device memory under
+    OUT.npz / OUT.json."""
+    sys.path.insert(0, HERE)
+    from langevin_mcmc_tpu_torch.__main__ import main as cli_main
+    from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
+    out, args = argv[0], argv[1:]
+    cw.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res = cli_main(args)[0]
+    np.savez(out + '.npz', film=res['film'], chain_film=res['chain_film'],
+             b=np.float64(res['b']))
+    with open(out + '.json', 'w') as f:
+        json.dump(dict(
+            timings={k: v for k, v in res['timings'].items()
+                     if isinstance(v, (int, float))},
+            launches=dict(cw.launch_counts), seconds=res['seconds'],
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            num_chains=res['opts'].num_chains), f)
+
+
+def path_h(xml_e, rate_e, spp=6):
+    """Path H: path E's configuration rendered by two ranks of the CLI
+    (--coordinator, --num-processes 2, --process-id 0/1) that share the
+    card (so the collectives take gloo), each with half the chains and
+    half the bootstrap samples; spp 6 gives 72 iterations in calls of 16,
+    with one cache merge after the fourth. Checks every rank's film, the
+    ranks' reduced chain films bit for bit and their b, their final films
+    to rtol 1e-5 (each rank's direct pass splats with atomics), the merge
+    and K1/K2 on both ranks."""
+    coord = f'127.0.0.1:{free_port()}'
+    base = os.path.join(OUT, 'path_h')
+    os.makedirs(base, exist_ok=True)
+    procs, logs = [], []
+    for r in range(2):
+        logs.append(open(os.path.join(base, f'rank{r}.log'), 'w'))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), '--rank',
+             os.path.join(base, f'rank{r}'), xml_e, '--spp', str(spp),
+             '--chunk', str(CHUNK), '--device', 'cuda',
+             '--output-dir', os.path.join(base, f'out{r}'),
+             '--coordinator', coord, '--num-processes', '2',
+             '--process-id', str(r)],
+            stdout=logs[-1], stderr=subprocess.STDOUT))
+    t0 = time.time()
+    try:
+        codes = [p.wait(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.time() - t0
+    for r in range(2):
+        with open(os.path.join(base, f'rank{r}.log')) as f:
+            text = f.read()
+        for line in text.splitlines():
+            if line.startswith('distributed:'):
+                log(f'path H rank {r}: {line}')
+        if codes[r] != 0:
+            raise AssertionError(f'path H rank {r} exited {codes[r]}:\n'
+                                 f'{text[-3000:]}')
+    res = []
+    for r in range(2):
+        z = np.load(os.path.join(base, f'rank{r}.npz'))
+        with open(os.path.join(base, f'rank{r}.json')) as f:
+            res.append((z, json.load(f)))
+    rates = []
+    for r, (z, js) in enumerate(res):
+        tm = js['timings']
+        local = js['num_chains'] // tm['world']
+        props = tm['steps'] * local / tm['loop_s']
+        rates.append(props)
+        check_film(f'path H rank {r}', z['film'])
+        log(f'path H rank {r}: b = {float(z["b"]):.6g}; bootstrap '
+            f'{tm["bootstrap_s"]:.2f} s, direct {tm["direct_s"]:.2f} s, chain '
+            f'loop {tm["loop_s"]:.2f} s ({tm["steps"]} iterations, '
+            f'{tm["loop_s"] / tm["steps"] * 1e3:.1f} ms each), '
+            f'{props:.1f} proposals/s, acceptance '
+            f'{tm["accepts"] / (tm["steps"] * local):.4f}; peak device '
+            f'memory {js["peak_gib"]:.2f} GiB; {tm["merges"]} cache merges, '
+            f'{tm["merge_s"] * 1e3 / max(tm["merges"], 1):.1f} ms each, '
+            f'{tm["merge_bytes"] / 2**20:.1f} MiB gathered; film reduce '
+            f'{tm["reduce_s"] * 1e3:.1f} ms; kernel launches '
+            f'{js["launches"]}; CLI total {js["seconds"]:.2f} s')
+        if tm['merges'] < 1:
+            raise AssertionError(f'path H rank {r}: no cache merge ran')
+        if min(js['launches']['split_closest_hit'],
+               js['launches']['split_any_hit']) <= 0:
+            raise AssertionError(f'path H rank {r}: K1/K2 not launched')
+    (z0, _), (z1, _) = res
+    if not np.array_equal(z0['chain_film'], z1['chain_film']):
+        raise AssertionError('path H: the ranks\' reduced chain films differ')
+    if float(z0['b']) != float(z1['b']):
+        raise AssertionError('path H: the ranks\' b differ')
+    np.testing.assert_allclose(z0['film'], z1['film'], rtol=1e-5, atol=1e-6)
+    log(f'path H: chain films bit-identical on both ranks, b equal, final '
+        f'films within rtol 1e-5 (max |diff| '
+        f'{np.abs(z0["film"] - z1["film"]).max():.3g}); both ranks '
+        f'{wall:.1f} s wall; summed proposals/s {sum(rates):.1f} / path E '
+        f'{rate_e:.1f} = {sum(rates) / rate_e:.3f}')
+    return res
+
+
+def path_i(xml_f, rate_f, rate_d):
+    """Path I: path F's configuration (the moving open scene, --spp 1)
+    with a BVH attached, through the API (neither package's CLI attaches
+    one): parse_scene, attach_bvh, render_mlt. No query may take the
+    brute force or a walk kernel; the BVH kernel must launch. Returns the
+    BVH launch counts."""
+    from langevin_mcmc_tpu_torch.integrators.mlt import render_mlt
+    from langevin_mcmc_tpu_torch.ops import bvh
+    from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
+    from langevin_mcmc_tpu_torch.ops import sweep_isect as sw
+    from langevin_mcmc_tpu_torch.scene.parse import parse_scene
+    label = 'path I (MALA, moving open scene, BVH)'
+    t0 = time.time()
+    scene, opts, _ = parse_scene(xml_f, device='cuda')
+    t_parse = time.time() - t0
+    scene = bvh.attach_bvh(scene)
+    t_build = time.time() - t0 - t_parse
+    opts = opts.replace(spp=1)
+    for m in (cw, sw, bvh):
+        m.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device='cuda').manual_seed(opts.seed_offset)
+    tm = {}
+    t0 = time.time()
+    with BruteForceCounter() as bf, torch.no_grad():
+        film, b = render_mlt(scene, opts, gen, chunk=CHUNK, timings=tm)
+        film = film.cpu().numpy()
+    seconds = time.time() - t0
+    launches = dict(bvh.launch_counts)
+    walks = dict(cw.launch_counts, **sw.launch_counts)
+    log(f'{label}: parse {t_parse:.2f} s, attach_bvh {t_build:.2f} s, render '
+        f'{seconds:.2f} s, peak device memory '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; BVH kernel '
+        f'launches {launches}, walk launches {walks}, brute-force queries '
+        f'{bf.calls}')
+    check_film(label, film, sky=True)
+    rate_i = chain_rate(label, dict(timings=tm, opts=opts, b=b))
+    log(f'path I / path F chain-loop proposals/s (same call): {rate_i:.1f} / '
+        f'{rate_f:.1f} = {rate_i / rate_f:.3f}; path I / path D: {rate_i:.1f}'
+        f' / {rate_d:.1f} = {rate_i / rate_d:.3f}')
+    if bf.calls or any(walks.values()) or min(launches.values()) <= 0:
+        raise AssertionError(f'{label}: brute-force queries {bf.calls}, walk '
+                             f'launches {walks}, BVH launches {launches}: '
+                             f'every query must take the BVH kernel')
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device (torch.cuda.is_available() '
@@ -899,6 +1350,8 @@ def main():
         f'({scene.textures.neigh.shape[0]} texels)')
     open_kernel_rows = open_rows(scene)
     del scene
+    bvh_rows = bvh_phase(xml, xml_open, xml_f)
+    nccl_phase(xml_e)
     check_generation(small_xml)
     check_generation(small_open)
     check_generation(small_motion)
@@ -907,7 +1360,8 @@ def main():
     res_a, launch_a = render('path A (MALA)', xml, {})
     rate_a = chain_rate('path A (MALA)', res_a)
     res_b, launch_b = render('path B (H2MC)', xml_h2mc,
-                             {'LMCMC_ISECT_BACKEND': 'pallas'})
+                             {'LMCMC_ISECT_BACKEND': 'pallas'},
+                             num_steps=PATH_B_STEPS)
     rate_b = chain_rate('path B (H2MC)', res_b)
     log(f'H2MC/MALA cost ratio (chain-loop proposals/s, same tuning, same '
         f'card): {rate_a / rate_b:.3f}')
@@ -926,6 +1380,8 @@ def main():
     log(f'path E / path A chain-loop proposals/s (same call): '
         f'{rate_e:.1f} / {rate_a:.1f} = {rate_e / rate_a:.3f}')
     cache_phase(xml_e)
+    torch.cuda.empty_cache()
+    path_h(xml_e, rate_e)
 
     scene, _, _ = parse_scene(xml_f, device='cuda')
     log(f'moving open scene: {scene.num_tris} triangles, has_motion '
@@ -956,6 +1412,9 @@ def main():
     rate_g = chain_rate('path G (isotropic-only chain)', res_g)
     log(f'path G / path A chain-loop proposals/s (same call): '
         f'{rate_g:.1f} / {rate_a:.1f} = {rate_g / rate_a:.3f}')
+    launch_i = path_i(xml_f, rate_f, rate_d)
+    for (key, _), row in bvh_rows.items():
+        row['launches'] = launch_i[key]
     for key in ('split_closest_hit', 'split_any_hit'):
         rows[key]['launches_path_g'] = launch_g[key]
         if launch_g[key] <= 0:
@@ -983,7 +1442,8 @@ def main():
                                  f'the path that runs it')
     log(f'total {time.time() - t_start:.1f} s')
     print(json.dumps({'kernels': list(rows.values())
-                      + list(open_kernel_rows.values())}))
+                      + list(open_kernel_rows.values())
+                      + list(bvh_rows.values())}))
     print(f'nvidia-smi: {card}')
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -991,4 +1451,7 @@ def main():
 
 
 if __name__ == '__main__':
-    main()
+    if sys.argv[1:2] == ['--rank']:
+        rank_main(sys.argv[2:])
+    else:
+        main()

@@ -7,8 +7,14 @@ small steps with plain, multiplexed or cache-seeded large steps) or "mc"
 (bidirectional path tracing); shapes, the camera and the env map may move
 between two keyframes. Writes <output>_timeuse_<seconds>s.exr and .png into
 --output-dir, and intermediate.exr/.png there every reportintervalspp spp
-of an MCMC render. Renders on the card; on a machine without one,
---device cpu must be given.
+of a single-process MCMC render. Renders on the card; on a machine without
+one, --device cpu must be given.
+
+Multi-process: one process per rank with --coordinator host:port
+--num-processes N --process-id i (each rank on cuda:{i % cards}); an MCMC
+scene then renders with its chains sharded over the ranks
+(parallel/multihost.py), as it does in one process with --mesh. Every rank
+writes its image.
 """
 
 import argparse
@@ -19,12 +25,16 @@ import time
 
 def main(argv=None):
     """Run the CLI. Returns a dict per scene: film (numpy [H, W, 3]),
-    b (MCMC normalization or None), seconds, timings, paths written."""
+    b (MCMC normalization or None), seconds, timings, paths written and,
+    for a sharded MCMC render, chain_film (the reduced chain film)."""
     p = argparse.ArgumentParser(prog='langevin_mcmc_tpu_torch',
                                 description='gradient-based MCMC renderer '
                                             '(PyTorch/CUDA)')
     p.add_argument('scenes', nargs='+', help='scene XML files')
     p.add_argument('--seedoffset', type=int, default=0, help='RNG seed')
+    p.add_argument('--max-derivatives-depth', type=int, default=8,
+                   help='max path depth for derivative kernels (unused: '
+                        'autograd handles any depth; kept for CLI parity)')
     p.add_argument('--film-scale', type=float, default=1.0,
                    help='scale film resolution (debugging)')
     p.add_argument('--spp', type=int, default=None, help='override spp')
@@ -34,6 +44,15 @@ def main(argv=None):
     p.add_argument('--device', default='cuda',
                    help='torch device (default: cuda; the CPU only when '
                         'asked for)')
+    p.add_argument('--mesh', action='store_true',
+                   help='render MCMC scenes through the sharded renderer '
+                        '(parallel/multihost.py) in a single process too')
+    p.add_argument('--coordinator', default=None,
+                   help='multi-process coordinator address host:port')
+    p.add_argument('--num-processes', type=int, default=None,
+                   help='multi-process rank count')
+    p.add_argument('--process-id', type=int, default=None,
+                   help='this process\'s rank (multi-process)')
     args = p.parse_args(argv)
 
     import torch
@@ -43,6 +62,11 @@ def main(argv=None):
               'CPU', file=sys.stderr)
         sys.exit(2)
     os.makedirs(args.output_dir, exist_ok=True)
+    from .parallel.multihost import init_distributed, render_mlt_multihost
+    rank_device = init_distributed(args.coordinator, args.num_processes,
+                                   args.process_id, device)
+    distributed = rank_device is not None
+    device = rank_device or device
     from .scene.parse import parse_scene, parse_scene_host
     from .integrators.pathtrace import render_mc
     from .integrators.mlt import render_mlt
@@ -68,12 +92,16 @@ def main(argv=None):
         gen = torch.Generator(device=device)
         gen.manual_seed(opts.seed_offset)
 
-        timings = {}
+        timings, parts = {}, {}
         t0 = time.time()
         with torch.no_grad():
             if opts.integrator == 'mc':
                 film = render_mc(scene, opts, gen, chunk=args.chunk)
                 b = None
+            elif distributed or args.mesh:
+                film, b = render_mlt_multihost(
+                    scene, opts, opts.seed_offset, chunk=args.chunk,
+                    progress=True, timings=timings, parts=parts)
             else:
                 film, b = render_mlt(
                     scene, opts, gen, chunk=args.chunk, progress=True,
@@ -92,7 +120,8 @@ def main(argv=None):
         print(f'wrote {hdr}')
         print('Done!')
         results.append(dict(film=film, b=b, seconds=elapsed, timings=timings,
-                            opts=opts, exr=hdr, png=ldr))
+                            opts=opts, exr=hdr, png=ldr,
+                            **{k: v.cpu().numpy() for k, v in parts.items()}))
     return results
 
 

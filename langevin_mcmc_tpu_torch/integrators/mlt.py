@@ -181,10 +181,15 @@ def attach_cache(banked: BankedState, opts):
     return dataclasses.replace(banked, cache=cache)
 
 
-def make_mlt_step(scene, opts, normalization, ls_prob, length_dist=None):
+def make_mlt_step(scene, opts, normalization, ls_prob, length_dist=None,
+                  film_shards=None):
     """The per-iteration chain update:
     step(generator, banked, film, init_banked) -> banked; the film
     [H, W, 3] is accumulated in place.
+
+    film_shards: with S, the film is [S, H, W, 3] per-shard partial films
+    and every splat point lands in its lane's shard, lane // (C // S);
+    the caller sums the shards once at the end.
 
     Only K = ceil(1.3 * C * ls_prob) lanes run the large step per step:
     lanes wanting a large step are gathered to the front (random
@@ -210,6 +215,12 @@ def make_mlt_step(scene, opts, normalization, ls_prob, length_dist=None):
     _, _, s_tags_static, _ = _slot_tables(D)
     dev = scene.device
     small = small_kind(opts)
+    lane_shard = None
+    if film_shards:
+        if C % film_shards:
+            raise ValueError(f'{C} chains do not split into {film_shards} '
+                             f'film shards')
+        lane_shard = torch.arange(C, device=dev) // (C // film_shards)
 
     counts = {}
 
@@ -311,13 +322,20 @@ def make_mlt_step(scene, opts, normalization, ls_prob, length_dist=None):
             lscr_k = bscr_k = prop_lk['screen'][:, None]
             lctr_k = (prop_lk['contrib'] * w_k[:, None])[:, None]
             bctr_k = (prop_lk['contrib'] * inv_ls[:, None])[:, None]
+        shard_idx = None
+        if lane_shard is not None:
+            # the bank's NB points, the small step's one and the large
+            # step's (K-compact) points per lane, each in its lane's shard
+            shard_idx = torch.cat([
+                lane_shard.repeat_interleave(NB), lane_shard,
+                lane_shard[sel].repeat_interleave(lscr_k.shape[1])])
         splat(film,
               torch.cat([banked.bank_screen.reshape(-1, 2), small_screen,
                          lscr_k.reshape(-1, 2)]),
               torch.cat([(banked.bank_contrib
                           * w_cur[:, None, None]).reshape(-1, 3),
                          small_contrib * small_w[:, None],
-                         lctr_k.reshape(-1, 3)]))
+                         lctr_k.reshape(-1, 3)]), shard_idx=shard_idx)
         lbank_scr = scat(bscr_k)
         lbank_ctr = scat(bctr_k)
 

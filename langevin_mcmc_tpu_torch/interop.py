@@ -45,8 +45,12 @@ def scene_from_numpy(d, device='cpu'):
     """SceneData from a dict of numpy arrays holding the JAX SceneData
     fields (HOST_FIELDS, both keyframes of tri_p and tri_n among them,
     num_lights, env_light_id, has_motion, 'camera': a dict of
-    CAMERA_FIELDS, and 'textures': a dict of TEXTURE_FIELDS)."""
+    CAMERA_FIELDS, 'textures': a dict of TEXTURE_FIELDS and, where given,
+    the BVH's 'bvh_nodes', 'bvh_prim_ids' and 'use_bvh')."""
     host = {k: np.asarray(d[k]) for k in HOST_FIELDS}
+    for k in ('bvh_nodes', 'bvh_prim_ids', 'use_bvh'):
+        if k in d:
+            host[k] = d[k]
     host['num_lights'] = int(d['num_lights'])
     host['env_light_id'] = int(d['env_light_id'])
     host['has_motion'] = bool(d['has_motion'])

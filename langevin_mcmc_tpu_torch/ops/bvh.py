@@ -1,0 +1,381 @@
+"""Flattened BVH: host build and per-ray traversal (port of ops/bvh.py).
+
+A binned-SAH BVH is built on the host (numpy, ``build_bvh``; the C++
+build of ``native/`` gives the same layout faster), flattened into one
+[N, 8] f32 node array, and traversed per ray with a stack of STACK_DEPTH
+node indices. The traversal is the CUDA kernel of ``csrc/bvh.cu`` for
+CUDA tensors and its plain torch version ``traverse_reference`` for CPU
+tensors; both compute the JAX package's ``_traverse_one`` for every ray.
+
+Node layout (f32 row of 8):
+  [0:3] bbox min, [3:6] bbox max,
+  [6]   left child index (inner) | first-primitive offset (leaf)
+  [7]   > 0: leaf with that many primitives; <= 0: inner, -right child idx
+
+Leaf primitives are contiguous in ``bvh_prim_ids`` order. For two-keyframe
+motion, nodes bound the union of both keyframes and every triangle test
+lerps the triangle's vertices to the ray's time.
+
+The BVH's tie rule is the first strictly closer hit in its depth-first
+order (right child pushed before the left, so the left is visited first);
+the chunk walk's and the brute force's differ, so ``make_intersect_fns``
+takes the BVH only when one is attached, as the JAX package does.
+"""
+
+import dataclasses
+import weakref
+
+import numpy as np
+import torch
+
+from . import cuda_build
+
+MAX_LEAF = 4
+N_BUCKETS = 12
+STACK_DEPTH = 64
+
+# launches of the CUDA kernel, per variant; the plain version never counts
+launch_counts = {'closest_hit': 0, 'any_hit': 0}
+
+# id -> weak reference of each node tensor whose depth check_depth passed
+_depth_checked = {}
+
+
+def reset_launch_counts():
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def build_bvh(tri_p):
+    """Build from [2, T, 3, 3] keyframe triangle vertices.
+
+    Returns (nodes [N,8] float32, prim_ids [T] int32).
+    Binned-SAH sweep, iterative with an explicit stack.
+    """
+    T = tri_p.shape[1]
+    lo = tri_p.min(axis=(0, 2))   # [T, 3] over keyframes & corners
+    hi = tri_p.max(axis=(0, 2))
+    centers = 0.5 * (lo + hi)
+
+    nodes = []
+    order = np.arange(T)
+    stack = [(order, -1, False)]  # (ids, parent_node, is_right)
+    out_prims = []
+
+    while stack:
+        ids, parent, is_right = stack.pop()
+        node_id = len(nodes)
+        if parent >= 0:
+            if is_right:
+                nodes[parent][7] = -float(node_id)
+            else:
+                nodes[parent][6] = float(node_id)
+        nlo = lo[ids].min(0)
+        nhi = hi[ids].max(0)
+        n = len(ids)
+        if n <= MAX_LEAF:
+            first = len(out_prims)
+            out_prims.extend(ids.tolist())
+            nodes.append([*nlo, *nhi, float(first), float(n)])
+            continue
+
+        c = centers[ids]
+        cmin, cmax = c.min(0), c.max(0)
+        axis = int(np.argmax(cmax - cmin))
+        extent = cmax[axis] - cmin[axis]
+        if extent <= 1e-12:
+            # degenerate: split in half by order
+            mid = n // 2
+        else:
+            # binned SAH
+            b = np.minimum(((c[:, axis] - cmin[axis]) / extent * N_BUCKETS)
+                           .astype(np.int32), N_BUCKETS - 1)
+            counts = np.bincount(b, minlength=N_BUCKETS)
+            bucket_lo = np.full((N_BUCKETS, 3), np.inf)
+            bucket_hi = np.full((N_BUCKETS, 3), -np.inf)
+            for k in range(3):
+                np.minimum.at(bucket_lo[:, k], b, lo[ids][:, k])
+                np.maximum.at(bucket_hi[:, k], b, hi[ids][:, k])
+
+            def area(l, h):
+                d = np.maximum(h - l, 0.0)
+                return 2.0 * (d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2]
+                              + d[..., 2] * d[..., 0])
+
+            # prefix/suffix sweeps
+            pre_lo = np.minimum.accumulate(bucket_lo, 0)
+            pre_hi = np.maximum.accumulate(bucket_hi, 0)
+            suf_lo = np.minimum.accumulate(bucket_lo[::-1], 0)[::-1]
+            suf_hi = np.maximum.accumulate(bucket_hi[::-1], 0)[::-1]
+            pre_cnt = np.cumsum(counts)
+            suf_cnt = np.cumsum(counts[::-1])[::-1]
+            costs = np.full(N_BUCKETS - 1, np.inf)
+            for s in range(N_BUCKETS - 1):
+                if pre_cnt[s] == 0 or suf_cnt[s + 1] == 0:
+                    continue
+                costs[s] = (area(pre_lo[s], pre_hi[s]) * pre_cnt[s]
+                            + area(suf_lo[s + 1], suf_hi[s + 1])
+                            * suf_cnt[s + 1])
+            s = int(np.argmin(costs))
+            if not np.isfinite(costs[s]):
+                mid = n // 2
+                ids = ids[np.argsort(c[:, axis], kind='stable')]
+            else:
+                left_mask = b <= s
+                ids = np.concatenate([ids[left_mask], ids[~left_mask]])
+                mid = int(left_mask.sum())
+                if mid == 0 or mid == n:
+                    mid = n // 2
+        if extent <= 1e-12:
+            ids = ids[np.argsort(c[:, axis], kind='stable')]
+
+        nodes.append([*nlo, *nhi, 0.0, 0.0])  # children patched later
+        # push right first so left is processed next (contiguous DFS order)
+        stack.append((ids[mid:], node_id, True))
+        stack.append((ids[:mid], node_id, False))
+
+    nodes = np.asarray(nodes, np.float32)
+    prim_ids = np.asarray(out_prims, np.int32)
+    return nodes, prim_ids
+
+
+def tree_depth(nodes):
+    """Levels of the flattened tree (1 for a root leaf)."""
+    depth = np.zeros(len(nodes), np.int64)
+    depth[0] = 1
+    for i, row in enumerate(nodes):     # children follow their parent
+        if row[7] <= 0.0:
+            for c in (int(row[6]), int(-row[7])):
+                depth[c] = depth[i] + 1
+    return int(depth.max())
+
+
+def check_depth(nodes):
+    """Raise when the tree of nodes (a tensor) is too deep for the
+    traversal's stack: a depth-first walk of a d-level tree holds at most
+    d entries. Reads the nodes once per tensor."""
+    key = id(nodes)
+    ref = _depth_checked.get(key)
+    if ref is not None and ref() is nodes:
+        return
+    depth = tree_depth(nodes.cpu().numpy())
+    if depth > STACK_DEPTH:
+        raise ValueError(f'BVH of {depth} levels; the traversal stack '
+                         f'holds {STACK_DEPTH}')
+    _depth_checked[key] = weakref.ref(
+        nodes, lambda _: _depth_checked.pop(key, None))
+
+
+def attach_bvh(scene):
+    """The scene with a BVH built by build_bvh over both keyframes of its
+    triangles, on its device, and use_bvh set. Raises when the tree is too
+    deep for the traversal (check_depth)."""
+    nodes, prim_ids = build_bvh(scene.tri_p.cpu().numpy())
+    nodes = torch.as_tensor(nodes, device=scene.device)
+    check_depth(nodes)
+    return dataclasses.replace(
+        scene, bvh_nodes=nodes,
+        bvh_prim_ids=torch.as_tensor(prim_ids, device=scene.device),
+        use_bvh=True)
+
+
+# ---------------------------------------------------------------------------
+# the traversal: plain version
+# ---------------------------------------------------------------------------
+
+def _cross(a, b):
+    """a x b, each product and difference rounded on its own (the kernel's
+    order)."""
+    return (a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+            a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+            a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0])
+
+
+def _dot(a, b):
+    """a . b summed left to right; a, b tuples of 3 columns."""
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def _tri_test(tri_p, pid, org, d, time, has_motion):
+    """ops/intersect.moller_trumbore against triangles pid at the rays'
+    time, every product and sum rounded in the kernel's order. Returns
+    (t, u, v, divisor)."""
+    if has_motion:
+        tm = time[:, None, None]
+        tp = (1.0 - tm) * tri_p[0][pid] + tm * tri_p[1][pid]
+    else:
+        tp = tri_p[0][pid]
+    p0 = tp[:, 0]
+    e1 = tp[:, 1] - p0
+    e2 = tp[:, 2] - p0
+    dc = (d[:, 0], d[:, 1], d[:, 2])
+    s1 = _cross(d, e2)
+    divisor = _dot(s1, (e1[:, 0], e1[:, 1], e1[:, 2]))
+    clamped = torch.where(torch.abs(divisor) < 1e-12,
+                          torch.where(divisor < 0,
+                                      torch.full_like(divisor, -1e-12),
+                                      torch.full_like(divisor, 1e-12)),
+                          divisor)
+    inv_div = 1.0 / clamped
+    s = org - p0
+    u = _dot((s[:, 0], s[:, 1], s[:, 2]), s1) * inv_div
+    s2 = _cross(s, e1)
+    v = _dot(dc, s2) * inv_div
+    t = _dot((e2[:, 0], e2[:, 1], e2[:, 2]), s2) * inv_div
+    return t, u, v, divisor
+
+
+def _ray_box(inv_d, org, node, t_min, t_max):
+    """Slab test of rays against node boxes [n, 8]: near <= far, with NaN
+    propagating through the min / max as torch propagates it."""
+    t0 = (node[:, 0:3] - org) * inv_d
+    t1 = (node[:, 3:6] - org) * inv_d
+    near = torch.maximum(torch.amax(torch.minimum(t0, t1), -1), t_min)
+    far = torch.minimum(torch.amin(torch.maximum(t0, t1), -1), t_max)
+    return near <= far
+
+
+def traverse_reference(nodes, prim_ids, tri_p, org, d, time, min_t, max_t,
+                       any_hit, has_motion, stats=None):
+    """Plain torch version of the traversal kernel: each ray keeps
+    _traverse_one's state (a stack of STACK_DEPTH node ids, the root
+    pushed at sp = 1; the best (t, id, u, v)), and each round pops one
+    node of every ray still walking, tests a leaf's triangles (strict t <
+    best t) or pushes an inner node's hit children (right first), then
+    drops the rays that are done (empty stack; with any_hit, a hit).
+
+    Returns (t, id, u, v) per ray, t = inf and id 0 where nothing is hit,
+    or, with any_hit, the best t (finite where occluded). stats: optional
+    dict that receives per-ray int64 counts 'inner' (inner nodes visited)
+    and 'tests' (triangles tested)."""
+    R = org.shape[0]
+    dev = org.device
+    T = prim_ids.shape[0]
+    inv_d = 1.0 / torch.where(d == 0.0, torch.full_like(d, 1e-20), d)
+    stack = torch.zeros((R, STACK_DEPTH), dtype=torch.int64, device=dev)
+    sp = torch.ones(R, dtype=torch.int64, device=dev)
+    best_t = torch.full((R,), float('inf'), device=dev)
+    best_id = torch.zeros(R, dtype=torch.int32, device=dev)
+    best_u = torch.zeros(R, device=dev)
+    best_v = torch.zeros(R, device=dev)
+    inner = torch.zeros(R, dtype=torch.int64, device=dev)
+    tests = torch.zeros(R, dtype=torch.int64, device=dev)
+    act = torch.arange(R, device=dev)
+    while act.numel():
+        sp[act] -= 1
+        node = nodes[stack[act, sp[act]]]
+        leaf = node[:, 7] > 0.0
+
+        lr = act[leaf]
+        if lr.numel():
+            first = node[leaf, 6].to(torch.int64)
+            n = node[leaf, 7].to(torch.int64)
+            tests[lr] += n
+            for k in range(MAX_LEAF):
+                pid = prim_ids[torch.clamp(first + k, max=T - 1)].long()
+                t, u, v, div = _tri_test(tri_p, pid, org[lr], d[lr],
+                                         time[lr], has_motion)
+                bt = best_t[lr]
+                ok = ((div != 0.0) & (u >= 0.0) & (v >= 0.0)
+                      & (u + v <= 1.0) & (t >= min_t[lr]) & (t <= max_t[lr])
+                      & (t < bt) & (k < n))
+                best_t[lr] = torch.where(ok, t, bt)
+                best_id[lr] = torch.where(ok, pid.to(torch.int32),
+                                          best_id[lr])
+                best_u[lr] = torch.where(ok, u, best_u[lr])
+                best_v[lr] = torch.where(ok, v, best_v[lr])
+
+        ir = act[~leaf]
+        if ir.numel():
+            inner[ir] += 1
+            left = node[~leaf, 6].to(torch.int64)
+            right = (-node[~leaf, 7]).to(torch.int64)
+            tmax = torch.minimum(max_t[ir], best_t[ir])
+            o, iv, mn = org[ir], inv_d[ir], min_t[ir]
+            lhit = _ray_box(iv, o, nodes[left], mn, tmax)
+            rhit = _ray_box(iv, o, nodes[right], mn, tmax)
+            # hit children pushed, the left last so that it is visited first
+            s = sp[ir]
+            stack[ir, s] = torch.where(rhit, right, stack[ir, s])
+            s = s + rhit
+            stack[ir, s] = torch.where(lhit, left, stack[ir, s])
+            sp[ir] = s + lhit
+
+        done = sp[act] <= 0
+        if any_hit:
+            done |= torch.isfinite(best_t[act])
+        act = act[~done]
+    if stats is not None:
+        stats.update(inner=inner, tests=tests)
+    if any_hit:
+        return best_t
+    return best_t, best_id, best_u, best_v
+
+
+# ---------------------------------------------------------------------------
+# the traversal: CUDA kernel
+# ---------------------------------------------------------------------------
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def traverse(nodes, prim_ids, tri_p, org, d, time, min_t, max_t, any_hit,
+             has_motion):
+    """The traversal of every ray. CPU tensors run traverse_reference;
+    CUDA tensors launch the kernel (or raise). Returns (t, id, u, v) per
+    ray (t = inf, id 0 where nothing is hit) or, with any_hit, occluded
+    (bool) per ray. Raises for a tree deeper than the stack
+    (check_depth), however the nodes reached the scene."""
+    check_depth(nodes)
+    if not org.is_cuda:
+        out = traverse_reference(nodes, prim_ids, tri_p, org, d, time, min_t,
+                                 max_t, any_hit, has_motion)
+        return torch.isfinite(out) if any_hit else out
+    dev = org.device
+    R, T, N = org.shape[0], prim_ids.shape[0], nodes.shape[0]
+    check = cuda_build.check
+    check(nodes, 'nodes', torch.float32, (N, 8), dev)
+    check(prim_ids, 'prim_ids', torch.int32, (T,), dev)
+    check(tri_p, 'tri_p', torch.float32, (2, T, 3, 3), dev)
+    check(org, 'org', torch.float32, (R, 3), dev)
+    check(d, 'dir', torch.float32, (R, 3), dev)
+    for x, name in ((time, 'time'), (min_t, 'min_t'), (max_t, 'max_t')):
+        check(x, name, torch.float32, (R,), dev)
+    if nodes.data_ptr() % 16:
+        raise ValueError('nodes must be 16-byte aligned (float4 reads)')
+    if any_hit:
+        out = occ = torch.empty(R, dtype=torch.bool, device=dev)
+        res = (None,) * 4
+    else:
+        out = res = (torch.empty(R, dtype=torch.float32, device=dev),
+                     torch.empty(R, dtype=torch.int32, device=dev),
+                     torch.empty(R, dtype=torch.float32, device=dev),
+                     torch.empty(R, dtype=torch.float32, device=dev))
+        occ = None
+    err = cuda_build.load_library().bvh_traverse(
+        *map(_ptr, (nodes, prim_ids, tri_p, org, d, time, min_t, max_t)),
+        R, T, int(has_motion), int(any_hit), *map(_ptr, res), _ptr(occ),
+        cuda_build.stream_of(dev))
+    cuda_build.raise_on_error(err, f'bvh_traverse (any_hit={any_hit})')
+    launch_counts['any_hit' if any_hit else 'closest_hit'] += 1
+    return out
+
+
+def intersect_bvh(scene, org, d, time, min_t, max_t):
+    """Closest hit. Returns (hit, tri_id, t, u, v); t = 0 where nothing is
+    hit."""
+    t, tid, u, v = traverse(scene.bvh_nodes, scene.bvh_prim_ids, scene.tri_p,
+                            org.contiguous(), d.contiguous(),
+                            time.contiguous(), min_t.contiguous(),
+                            max_t.contiguous(), False, scene.has_motion)
+    hit = torch.isfinite(t)
+    return hit, tid, torch.where(hit, t, torch.zeros_like(t)), u, v
+
+
+def occluded_bvh(scene, org, d, time, min_t, max_t):
+    """Any hit. Returns occluded [R] bool."""
+    return traverse(scene.bvh_nodes, scene.bvh_prim_ids, scene.tri_p,
+                    org.contiguous(), d.contiguous(), time.contiguous(),
+                    min_t.contiguous(), max_t.contiguous(), True,
+                    scene.has_motion)

@@ -33,8 +33,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # launch_walk): tables and rays, (blocks, chunks, splits, any_hit), the
 # closest hit's partials and outputs, occluded, chunk_mask, the stream
 _WALK = [_P] * 7 + [_I] * 4 + [_P] * 10 + [_P]
+# the BVH traversal (csrc/bvh.cu): nodes, prim ids, vertices and rays,
+# (rays, triangles, motion, any_hit), the closest hit's outputs, occluded,
+# the stream
+_BVH = [_P] * 8 + [_I] * 4 + [_P] * 5 + [_P]
 SIGNATURES = {'chunkwalk_staged': _WALK, 'chunkwalk_resident': _WALK,
-              'sweep_walk': _WALK}
+              'sweep_walk': _WALK, 'bvh_traverse': _BVH}
 
 # set by the first build in this process: seconds, cached, library path
 build_info = {}

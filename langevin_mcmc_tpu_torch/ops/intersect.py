@@ -4,10 +4,10 @@
   exact, the test oracle, and the query of every moving scene: each
   (ray, triangle) pair tests the triangle's vertices lerped between the
   two keyframes at the ray's time.
-* ``make_intersect_fns`` — the backend switch of the queries: the chunk
-  walk (``ops/chunkwalk.py``), the culled sweep (``ops/sweep_isect.py``)
-  or brute force; each kernel launches for CUDA tensors and runs its plain
-  torch version for CPU tensors.
+* ``make_intersect_fns`` — the backend switch of the queries: an attached
+  BVH (``ops/bvh.py``), the chunk walk (``ops/chunkwalk.py``), the culled
+  sweep (``ops/sweep_isect.py``) or brute force; each kernel launches for
+  CUDA tensors and runs its plain torch version for CPU tensors.
 * triangle rows (packed keyframe-0 rows on a static scene, rows lerped at
   the lane's time on a moving one), hit attributes and the frozen-triangle
   replay intersection used under differentiation.
@@ -129,18 +129,23 @@ def occluded_bruteforce(scene, org, d, time, min_t, max_t):
 
 def make_intersect_fns(scene):
     """Return (intersect, occluded) for the backend LMCMC_ISECT_BACKEND
-    names, read on each call as the JAX package's switch reads it:
-    '' or 'chunkwalk' the chunk walk (its resident form when the pack is
-    at most LMC_CW_VMEM_BYTES bytes), 'pallas' the culled sweep (the JAX
-    package's Pallas sweep, ported as ops/sweep_isect.py), 'brute' brute
-    force. A scene with moving shapes takes brute force whatever the
-    variable names, as in the JAX package: the walk tables hold keyframe 0
-    only. The XLA matmul sweep ('matmul') is not ported."""
+    names, read on each call as the JAX package's switch reads it. A
+    scene with a BVH attached (ops/bvh.attach_bvh, static or moving) takes
+    the BVH when the variable is unset. Otherwise '' or 'chunkwalk' the
+    chunk walk (its resident form when the pack is at most
+    LMC_CW_VMEM_BYTES bytes), 'pallas' the culled sweep (the JAX package's
+    Pallas sweep, ported as ops/sweep_isect.py), 'brute' brute force. A
+    scene with moving shapes takes brute force whatever the variable names
+    (unless a BVH is attached), as in the JAX package: the walk tables
+    hold keyframe 0 only. The XLA matmul sweep ('matmul') is not ported."""
     backend = os.environ.get('LMCMC_ISECT_BACKEND', '')
     if backend not in ('', 'chunkwalk', 'pallas', 'brute'):
         raise ValueError(f'LMCMC_ISECT_BACKEND={backend!r}: the port has the '
                          f"backends 'chunkwalk', 'pallas' and 'brute' (the "
                          f'XLA matmul sweep is not ported)')
+    if scene.use_bvh and backend == '':
+        from .bvh import intersect_bvh, occluded_bvh
+        return (partial(intersect_bvh, scene), partial(occluded_bvh, scene))
     if backend == 'brute' or scene.has_motion:
         return (partial(intersect_bruteforce, scene),
                 partial(occluded_bruteforce, scene))

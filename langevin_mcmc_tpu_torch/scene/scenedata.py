@@ -117,6 +117,11 @@ class SceneData:
     height: int
     light_weight_sum: float
     device: torch.device
+    # the BVH (ops/bvh.attach_bvh; the parser leaves a placeholder and
+    # use_bvh False, as the JAX parser does)
+    bvh_nodes: torch.Tensor = None    # [N, 8] flattened nodes
+    bvh_prim_ids: torch.Tensor = None  # [T] int32 leaf-order triangle ids
+    use_bvh: bool = False
 
 
 def build_env_sample_info(img):
@@ -213,6 +218,8 @@ def build_scene(host, device='cuda'):
     """SceneData on `device` from host arrays (keys: HOST_FIELDS plus
     'num_lights', 'env_light_id', 'has_motion', 'camera', a dict of
     camera_arrays, and 'textures', a dict of TextureBuilder.host_arrays()).
+    Optional keys 'bvh_nodes', 'bvh_prim_ids' and 'use_bvh' default to the
+    JAX parser's placeholder: zeros((1, 8)), arange(T), False.
     The default is the card; a machine without one must ask for
     device='cpu'. Both keyframes of tri_p and tri_n go to the device; the
     packed rows and the walk tables hold keyframe 0, which is all a static
@@ -226,7 +233,7 @@ def build_scene(host, device='cuda'):
                                     device=device)
     i32 = lambda k: torch.as_tensor(np.array(host[k], np.int32),
                                     device=device)
-    tri_p = np.asarray(host['tri_p'], np.float32)
+    tri_p = np.array(host['tri_p'], np.float32, order='C')
     tri_n = np.asarray(host['tri_n'], np.float32)
     tri_st = np.asarray(host['tri_st'], np.float32)
     woop = (np.asarray(host['isect_B']), np.asarray(host['isect_C']),
@@ -247,7 +254,7 @@ def build_scene(host, device='cuda'):
     radius = np.float32(host['bsphere_radius'])
     mat_tex = np.stack([np.asarray(host[k], np.int32) for k in TEX_SLOTS], 1)
     return SceneData(
-        tri_p=f32('tri_p'), tri_n=f32('tri_n'), tri_st=f32('tri_st'),
+        tri_p=t(tri_p), tri_n=f32('tri_n'), tri_st=f32('tri_st'),
         tri_mat=i32('tri_mat'), tri_light=i32('tri_light'),
         tri_geom=t(build_tri_geom(tri_p[0], tri_n[0], tri_st)),
         mat_type=i32('mat_type'),
@@ -285,4 +292,10 @@ def build_scene(host, device='cuda'):
         num_tris=int(tri_p.shape[1]),
         num_lights=int(host['num_lights']), width=cam.width,
         height=cam.height, light_weight_sum=float(lw.sum()),
-        device=device)
+        device=device,
+        bvh_nodes=t(np.array(host.get('bvh_nodes', np.zeros((1, 8))),
+                               np.float32)),
+        bvh_prim_ids=t(np.array(host.get('bvh_prim_ids',
+                                           np.arange(tri_p.shape[1])),
+                                  np.int32)),
+        use_bvh=bool(host.get('use_bvh', False)))

@@ -23,6 +23,13 @@ class Distribution1D:
         self.func = torch.as_tensor(f, device=device)
         self.cdf = torch.as_tensor(cdf.astype(np.float32), device=device)
 
+    def to(self, device):
+        """A copy with its tables on device."""
+        out = object.__new__(Distribution1D)
+        out.__dict__.update(self.__dict__, func=self.func.to(device),
+                            cdf=self.cdf.to(device))
+        return out
+
     def sample_discrete(self, u):
         """Index with probability func[i]/(funcInt*n); returns (idx, pmf)."""
         idx = torch.searchsorted(self.cdf, u.contiguous(), right=True) - 1

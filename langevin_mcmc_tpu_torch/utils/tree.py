@@ -26,6 +26,13 @@ def tree_map(fn, obj, *rest):
     return obj
 
 
+def tree_leaves(obj):
+    """The tensor leaves of obj, in tree_map's order."""
+    out = []
+    tree_map(lambda x: out.append(x) or x, obj)
+    return out
+
+
 def tree_where(pred, a, b):
     """Per-lane select between two structures with [C, ...] leaves."""
     def sel(x, y):

@@ -21,7 +21,11 @@ file, so it also runs on a machine with a card and no JAX):
   every chunk) and blocks of rays that all miss: a miss keeps t = BIG and
   id -1; on the card, bit for bit with the plain version;
 * the entry points default to the card: without one, parse_scene and the
-  CLI refuse unless the CPU is asked for.
+  CLI refuse unless the CPU is asked for;
+* the BVH traversal (ops/bvh.py): on CPU tensors the wrapper runs the
+  plain version and counts no launch; on a card (marked `cuda`) the
+  kernel (csrc/bvh.cu) equals the plain version bit for bit, closest and
+  any hit, on the small box and the small moving open scene.
 """
 
 import dataclasses
@@ -31,6 +35,7 @@ import pytest
 import torch
 
 from langevin_mcmc_tpu_torch import testscenes
+from langevin_mcmc_tpu_torch.ops import bvh
 from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
 from langevin_mcmc_tpu_torch.ops import sweep_isect as sw
 from langevin_mcmc_tpu_torch.scene.parse import parse_scene
@@ -365,3 +370,62 @@ def test_entry_points_default_to_the_card(tmp_path):
         main([xml, '--output-dir', os.path.join(tmp_path, 'out')])
     assert exc.value.code != 0
     assert parse_scene(xml, device='cpu')[0].tri_p.device.type == 'cpu'
+
+
+@pytest.fixture(scope='module', params=['static', 'motion'])
+def bvh_scene(request, tmp_path_factory):
+    """The small box (static) or the small moving open scene, with a BVH
+    attached, on the CPU."""
+    kw = dict(scene='open', motion=True) if request.param == 'motion' \
+        else {}
+    xml = testscenes.write_scene(str(tmp_path_factory.mktemp('bvh')),
+                                 small=True, width=32, height=24, **kw)
+    return bvh.attach_bvh(parse_scene(xml, device='cpu')[0])
+
+
+def _timed_rays(scene, n, device):
+    """_rays with a random shutter time per ray: (org, d, time, mn, mx)."""
+    org, d, mn, mx = _rays(scene, n, 'cpu')
+    time = torch.rand(n, generator=torch.Generator().manual_seed(6))
+    return [x.to(device) for x in (org, d, time, mn, mx)]
+
+
+def test_bvh_wrapper_runs_the_plain_version_on_cpu(bvh_scene):
+    """On CPU tensors the BVH wrapper runs traverse_reference and counts
+    no launch; its any hit equals the closest hit's hit set."""
+    bvh.reset_launch_counts()
+    rays = _timed_rays(bvh_scene, 1000, 'cpu')
+    tabs = (bvh_scene.bvh_nodes, bvh_scene.bvh_prim_ids, bvh_scene.tri_p)
+    t, tid, _, _ = bvh.traverse(*tabs, *rays, False, bvh_scene.has_motion)
+    occ = bvh.traverse(*tabs, *rays, True, bvh_scene.has_motion)
+    hit = torch.isfinite(t)
+    assert torch.equal(occ, hit) and hit.any() and (~hit).any()
+    assert (tid[~hit] == 0).all()
+    assert not any(bvh.launch_counts.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('any_hit', [False, True])
+def test_bvh_kernel_matches_plain_on_card(bvh_scene, any_hit):
+    """The BVH kernel (csrc/bvh.cu) equals traverse_reference bit for bit
+    (t, id, u, v or occluded), static and moving, one launch counted;
+    inputs of the wrong dtype raise."""
+    sc = _on_card(bvh_scene)
+    rays = _timed_rays(sc, 4096, 'cuda')
+    tabs = (sc.bvh_nodes, sc.bvh_prim_ids, sc.tri_p)
+    bvh.reset_launch_counts()
+    got = bvh.traverse(*tabs, *rays, any_hit, sc.has_motion)
+    want = bvh.traverse_reference(*tabs, *rays, any_hit, sc.has_motion)
+    torch.cuda.synchronize()
+    if any_hit:
+        assert torch.equal(got, torch.isfinite(want))
+    else:
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert torch.isfinite(got[0]).any()
+    key = 'any_hit' if any_hit else 'closest_hit'
+    assert bvh.launch_counts == {k: int(k == key)
+                                 for k in bvh.launch_counts}
+    with pytest.raises(ValueError):
+        bvh.traverse(*tabs, rays[0].double(), *rays[1:], any_hit,
+                     sc.has_motion)

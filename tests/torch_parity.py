@@ -20,6 +20,9 @@ def jax_scene_to_numpy(scene):
     d['num_lights'] = scene.num_lights
     d['env_light_id'] = scene.env_light_id
     d['has_motion'] = scene.has_motion
+    d['use_bvh'] = scene.use_bvh
+    d['bvh_nodes'] = np.asarray(scene.bvh_nodes)
+    d['bvh_prim_ids'] = np.asarray(scene.bvh_prim_ids)
     d['camera'] = {k: np.asarray(getattr(scene.camera, k))
                    for k in interop.CAMERA_FIELDS}
     tex = scene.textures
