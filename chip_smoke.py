@@ -32,14 +32,18 @@ Phases (any failure exits non-zero before the last line is printed):
      and rays aimed at the scene) against their plain version, with time,
      plain time, bound and the share of live rays that miss;
   5. the BVH (ops/bvh.py, csrc/bvh.cu) on the box, the open scene and the
-     moving open scene: build_bvh (numpy) and build_bvh_native seconds;
-     the kernel, closest and any hit, against its plain version
+     moving open scene: ptxas's registers, stack frame, spills and shared
+     memory of each kernel instantiation; attach_bvh (build_bvh in numpy
+     and pack_bvh), pack_bvh alone and build_bvh_native seconds; the
+     kernel, closest and any hit, against its plain version
      (traverse_reference) bit for bit on the rays of phases 3 and 4 and
      of path F's brute-force query, at 65,536 rays and the large step's
-     4,261, with its time, the plain version's (one run), the inner nodes
-     and triangles a live ray (counted by the plain version) and its
-     bound; beside K1/K2 on the same static rays (kernel alone and whole
-     query) and the motion brute force on the same moving rays;
+     4,260, with its time, the plain version's (one run), the inner nodes
+     and triangles a live ray (counted by the plain version: mean, 99th
+     percentile, max), the divergence (the mean over warps of the most
+     loop steps of a lane over the warp's mean) and its bound; beside
+     K1/K2 on the same static rays (kernel alone and whole query) and the
+     motion brute force on the same moving rays;
   6. a one-rank NCCL process group on the card: global_sum, the cache
      merger (its all-gather of CUDA tensors) against merge_stacked on the
      CPU bit for bit, and the film all-reduce, each timed;
@@ -103,7 +107,9 @@ direct-pass seconds and peak device memory.
 The line before the last two is {"kernels": [...]}: per kernel its
 launches on its path (K1/K2 also on path E: launches_path_e), max |error|
 against the plain version, its time and
-the plain version's (ms), and its bound: the larger of the f32 operations
+the plain version's (ms; ms is one call of the wrapper on an idle card,
+ms_launches one of 20 calls back to back, the host's time to enqueue a
+call hidden behind the card's work), and its bound: the larger of the f32 operations
 this run's data needs (40 per ray-triangle test, 25 per ray-AABB slab
 test: 256 rays x all chunks per block) over the 67 TFLOP/s f32 peak and
 its bytes (each input read once, each output written once) over 3.35 TB/s
@@ -114,7 +120,9 @@ K1/K2 rows (names ending in _open) also carry miss_share. The BVH rows
 traversal is an XLA loop, not a Pallas kernel) carry their launches on
 path I, and a bound from the work the plain version counts: 25 f32
 operations per ray-box test (two per inner node), 61 per Moller-Trumbore
-test (28 more for a moving triangle's lerp).
+test (28 more for a moving triangle's lerp); also the work's spread and
+divergence, ptxas's report, pack_bvh's seconds and the large step's
+numbers (large_step).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -177,6 +185,26 @@ def cuda_ms(fn, repeats=5):
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def cuda_ms_launches(fn, launches=20, repeats=5):
+    """Median milliseconds of one fn() over repeats, each timing `launches`
+    calls back to back with CUDA events (after one warm-up call), so that
+    the host's time to enqueue a call overlaps the device's work: the
+    kernel's time, where cuda_ms's one call also counts the host's time
+    before the launch reaches an idle device."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / launches)
     return float(np.median(times))
 
 
@@ -282,16 +310,19 @@ def kernel_row(name, source, replaces, kernel, plain, any_hit, tests,
     torch.cuda.synchronize()
     err = compare(name, got, want, any_hit)
     ms = cuda_ms(kernel)
+    ms_launches = cuda_ms_launches(kernel)
     plain_ms = cuda_ms(plain)
     bound_ms, bound_by = bound(tests, in_bytes, rays * (1 if any_hit else 16),
                                slab_tests)
     log(f'{name}: equal to the plain version (max |err| {err}); kernel '
-        f'{ms:.3f} ms, plain {plain_ms:.3f} ms, {tests:.4g} ray-triangle '
+        f'{ms:.3f} ms (back to back {ms_launches:.3f} ms), plain '
+        f'{plain_ms:.3f} ms, {tests:.4g} ray-triangle '
         f'tests + {slab_tests:.4g} slab tests, bound {bound_ms:.3f} ms '
         f'({bound_by})')
     return dict(name=name, route='cuda', source=source, replaces=replaces,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+                max_abs_err=err, ms=ms, ms_launches=ms_launches,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
 
 
 def split_table(label, walk, tabs, o, d, rng):
@@ -989,17 +1020,59 @@ def nccl_phase(xml_e):
         dist.destroy_process_group()
 
 
+def ptxas_lines(source, kernel):
+    """(name, registers, stack frame, spill stores, spill loads, shared
+    memory) of each instantiation of `kernel` in ptxas's report of
+    `source` (the library's build; empty for a cached build)."""
+    import re
+    from langevin_mcmc_tpu_torch.ops import cuda_build
+    text = cuda_build.build_info.get('ptxas', {}).get(source, '')
+    out = []
+    for block in text.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        if kernel not in name:
+            continue
+        num = lambda pat: int((re.search(pat, block) or [0, 0])[1])
+        out.append(dict(
+            name=name, registers=num(r'Used (\d+) registers'),
+            stack_bytes=num(r'(\d+) bytes stack frame'),
+            spill_stores=num(r'(\d+) bytes spill stores'),
+            spill_loads=num(r'(\d+) bytes spill loads'),
+            smem_bytes=num(r'(\d+) bytes smem')))
+    return out
+
+
+def bvh_work(stats, live):
+    """Per-ray work the plain version counted: (inner nodes and triangles
+    a live ray: mean, 99th percentile, max), and the divergence: the mean
+    over warps (32 rays in launch order) of the most loop steps (inner
+    nodes + leaves) of a lane over the warp's mean."""
+    out = {}
+    for key in ('inner', 'tests'):
+        x = stats[key][live].double()
+        out[key] = (float(x.mean()), float(torch.quantile(x, 0.99)),
+                    int(x.max()))
+    steps = (stats['inner'] + stats['leaves']).double()
+    pad = -steps.numel() % 32
+    w = torch.cat([steps, steps.new_full((pad,), float('nan'))]).view(-1, 32)
+    ratio = w.nan_to_num(0).amax(1) / w.nanmean(1)
+    out['divergence'] = float(ratio.mean())
+    out['max_steps'] = int(steps.max())
+    return out
+
+
 def bvh_row(name, scene, rays, any_hit, static_rows):
     """The BVH kernel on these rays against its plain version (bit for
     bit), timed, with its bound from the nodes and triangles the plain
-    version visits; on a static scene beside K1/K2 on the same rays
-    (kernel alone, and the whole queries). Returns the row of the kernels
-    JSON line."""
+    version visits, the spread of that work and its divergence within a
+    warp; on a static scene beside K1/K2 on the same rays (kernel alone,
+    and the whole queries). Returns the row of the kernels JSON line."""
     from langevin_mcmc_tpu_torch.ops import bvh
     from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
     org, d, tm, mn, mx = rays
     tabs = (scene.bvh_nodes, scene.bvh_prim_ids, scene.tri_p)
-    kernel = lambda: bvh.traverse(*tabs, *rays, any_hit, scene.has_motion)
+    kernel = lambda: bvh.traverse(*tabs, *rays, any_hit, scene.has_motion,
+                                  scene.bvh_packed)
     stats = {}
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     ev[0].record()
@@ -1022,6 +1095,7 @@ def bvh_row(name, scene, rays, any_hit, static_rows):
                 raise AssertionError(f'{name}: {f} differs on '
                                      f'{(a != b).sum().item()} rays')
     ms = cuda_ms(kernel)
+    ms_launches = cuda_ms_launches(kernel)
     live = mx >= mn
     n_live = int(live.sum())
     # the bound counts every ray's work (a dead ray still tests the root's
@@ -1029,8 +1103,7 @@ def bvh_row(name, scene, rays, any_hit, static_rows):
     ops = 2 * OPS_PER_SLAB * int(stats['inner'].sum()) + int(
         stats['tests'].sum()) * (OPS_PER_MT
                                  + (OPS_PER_LERP if scene.has_motion else 0))
-    inner = int(stats['inner'][live].sum())
-    tests = int(stats['tests'][live].sum())
+    work = bvh_work(stats, live)
     tri_bytes = nbytes(scene.tri_p) // (1 if scene.has_motion else 2)
     in_bytes = nbytes(scene.bvh_nodes, scene.bvh_prim_ids, *rays) + tri_bytes
     out_bytes = org.shape[0] * (1 if any_hit else 16)
@@ -1038,17 +1111,26 @@ def bvh_row(name, scene, rays, any_hit, static_rows):
     bytes_ms = (in_bytes + out_bytes) / PEAK_BYTES * 1e3
     bound_ms, bound_by = (ops_ms, 'operations') if ops_ms >= bytes_ms \
         else (bytes_ms, 'bytes')
+    (i_mean, i_p99, i_max), (t_mean, t_p99, t_max) = (work['inner'],
+                                                      work['tests'])
     line = (f'{name}, {org.shape[0]} rays ({n_live} live): equal to the '
-            f'plain version; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, '
-            f'{inner / n_live:.2f} inner nodes and {tests / n_live:.2f} '
-            f'triangles a live ray, bound {bound_ms:.4f} ms ({bound_by})')
+            f'plain version; kernel {ms:.3f} ms (back to back '
+            f'{ms_launches:.3f} ms), plain '
+            f'{plain_ms:.1f} ms; '
+            f'inner nodes a live ray {i_mean:.2f} (p99 {i_p99:.0f}, max '
+            f'{i_max}), triangles {t_mean:.2f} (p99 {t_p99:.0f}, max '
+            f'{t_max}); divergence {work["divergence"]:.3f} (mean over '
+            f'warps of the most steps of a lane / the warp\'s mean; most '
+            f'steps of a ray {work["max_steps"]}); bound {bound_ms:.4f} ms '
+            f'({bound_by})')
     row = dict(name=name, route='cuda',
                source='langevin_mcmc_tpu_torch/csrc/bvh.cu',
                replaces='langevin_mcmc_tpu/ops/bvh.py:146', pallas=False,
-               max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-               bound_by=bound_by, library_ms=None,
-               inner_per_live_ray=inner / n_live,
-               tests_per_live_ray=tests / n_live)
+               max_abs_err=0.0, ms=ms, ms_launches=ms_launches,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=None, inner_per_live_ray=i_mean, inner_p99=i_p99, inner_max=i_max,
+               tests_per_live_ray=t_mean, tests_p99=t_p99, tests_max=t_max,
+               divergence=work['divergence'], max_steps=work['max_steps'])
     if static_rows:
         (o, dd, rng), order = cw.sort_rays(scene.cw, org, d, mn, mx)
         cw_tabs = (scene.cw.pack, scene.cw.ids, scene.cw.chunk_lo,
@@ -1066,10 +1148,29 @@ def bvh_row(name, scene, rays, any_hit, static_rows):
     return row
 
 
+LARGE_RAYS = int(0.05 * 65536 * 1.3) + 1   # the large step's 4,260 rays
+
+
+def bvh_rays(tag, scene):
+    """The BVH phase's 65,536 rays (org, d, time, min_t, max_t) of a scene:
+    the box's are check_kernels', the open scene's open_rows', the moving
+    scene's motion_queries'."""
+    if tag == 'box':
+        org, d, mn, mx = kernel_rays(scene, 65536, seed=7)
+        return org, d, torch.zeros_like(mn), mn, mx
+    if tag == 'open':
+        near = kernel_rays(scene, 65536 - 16384, seed=17)
+        far = far_rays(scene, 16384, seed=18)
+        org, d, mn, mx = (torch.cat([a, b]) for a, b in zip(near, far))
+        return org, d, torch.zeros_like(mn), mn, mx
+    return motion_rays(scene, 65536, seed=23)
+
+
 def bvh_phase(xml, xml_open, xml_f):
     """The BVH on the box, the open scene and the moving open scene: its
-    numpy and native builds timed; the kernel against its plain version
-    (closest and any hit, at 65,536 and 4,352 rays; the rays of
+    numpy and native builds and pack_bvh timed; ptxas's registers, stack
+    and spills of each kernel instantiation; the kernel against its plain
+    version (closest and any hit, at 65,536 and 4,260 rays; the rays of
     check_kernels, open_rows and motion_queries); on the moving scene the
     whole BVH query beside the motion brute force. Returns the rows of
     the kernels JSON line (65,536 rays), keyed by (variant, scene)."""
@@ -1077,13 +1178,26 @@ def bvh_phase(xml, xml_open, xml_f):
     from langevin_mcmc_tpu_torch.native import load_library as load_native
     from langevin_mcmc_tpu_torch.ops import bvh, intersect
     from langevin_mcmc_tpu_torch.scene.parse import parse_scene
+    ptxas = ptxas_lines('bvh.cu', 'bvh_kernel')
+    for k in ptxas:
+        log(f'BVH kernel ptxas: {k["name"]}: {k["registers"]} registers, '
+            f'{k["stack_bytes"]} bytes stack frame, {k["spill_stores"]} / '
+            f'{k["spill_loads"]} bytes spill stores / loads, '
+            f'{k["smem_bytes"]} bytes static shared memory')
+    if not ptxas:
+        log('BVH kernel ptxas: not reported (the library was cached)')
     rows = {}
-    large = int(0.05 * 65536 * 1.3) + 1
     for tag, path in (('box', xml), ('open', xml_open), ('motion', xml_f)):
         scene, _, _ = parse_scene(path, device='cuda')
         t0 = time.time()
         scene = bvh.attach_bvh(scene)
+        torch.cuda.synchronize()
         t_np = time.time() - t0
+        t0 = time.time()
+        packed = bvh.pack_bvh(scene.bvh_nodes, scene.bvh_prim_ids,
+                              scene.tri_p)
+        torch.cuda.synchronize()
+        t_pack = time.time() - t0
         tp = scene.tri_p.cpu().numpy()
         load_native()       # the g++ build at first use, not timed here
         t0 = time.time()
@@ -1093,28 +1207,35 @@ def bvh_phase(xml, xml_open, xml_f):
         same = np.array_equal(nodes, scene.bvh_nodes.cpu().numpy()) and \
             np.array_equal(prims, scene.bvh_prim_ids.cpu().numpy())
         log(f'BVH {tag}: {scene.num_tris} triangles, '
-            f'{scene.bvh_nodes.shape[0]} nodes, '
+            f'{scene.bvh_nodes.shape[0]} nodes '
+            f'({packed.records.shape[0]} records, '
+            f'{packed.records.numel() * 4} bytes), '
             f'{bvh.tree_depth(scene.bvh_nodes.cpu().numpy())} levels; '
-            f'build_bvh (numpy) {t_np:.2f} s, build_bvh_native {t_nat:.3f} s '
+            f'attach_bvh (build_bvh in numpy + pack_bvh) {t_np:.2f} s, '
+            f'pack_bvh alone {t_pack:.4f} s, build_bvh_native {t_nat:.3f} s '
             f'(same nodes: {same})')
-        if tag == 'box':
-            org, d, mn, mx = kernel_rays(scene, 65536, seed=7)
-            tm = torch.zeros_like(mn)
-        elif tag == 'open':
-            near = kernel_rays(scene, 65536 - 16384, seed=17)
-            far = far_rays(scene, 16384, seed=18)
-            org, d, mn, mx = (torch.cat([a, b]) for a, b in zip(near, far))
-            tm = torch.zeros_like(mn)
-        else:
-            org, d, tm, mn, mx = motion_rays(scene, 65536, seed=23)
-        for n in (65536, large):
+        del packed
+        org, d, tm, mn, mx = bvh_rays(tag, scene)
+        for n in (65536, LARGE_RAYS):
             rays = tuple(x[:n].contiguous() for x in (org, d, tm, mn, mx))
             for any_hit in (False, True):
                 key = 'any_hit' if any_hit else 'closest_hit'
                 row = bvh_row(f'bvh_{key}_{tag}', scene, rays, any_hit,
                               tag != 'motion')
+                row['pack_s'] = t_pack
+                row['ptxas'] = [k for k in ptxas
+                                if (('Lb1ELb' if tag == 'motion' else
+                                     'Lb0ELb') + ('1E' if any_hit else '0E'))
+                                in k['name']]
                 if n == 65536:
                     rows[key, tag] = row
+                else:
+                    rows[key, tag]['large_step'] = {
+                        k: row[k] for k in ('ms', 'ms_launches', 'bound_ms',
+                                            'plain_ms',
+                                            'inner_per_live_ray',
+                                            'tests_per_live_ray', 'inner_max',
+                                            'tests_max', 'divergence')}
         if tag == 'motion':
             rays = (org, d, tm, mn, mx)
             q = {}

@@ -20,10 +20,25 @@ The BVH's tie rule is the first strictly closer hit in its depth-first
 order (right child pushed before the left, so the left is visited first);
 the chunk walk's and the brute force's differ, so ``make_intersect_fns``
 takes the BVH only when one is attached, as the JAX package does.
+
+The kernel does not read the nodes: it walks the tables of ``pack_bvh``
+(``PackedBVH``), built once per tree on the tree's device by
+``attach_bvh`` (and ``build_scene`` for a scene that carries a BVH), which
+also refuses a tree deeper than the stack. The tables keep the node tensor
+they were packed from, and the traversal takes them only with that very
+tensor, so a tree swapped into a scene without its tables raises:
+  records [M, 16] f32, one an inner node, in breadth-first order:
+        [0:6] the left child's box, [6:12] the right child's (both bit
+        for bit nodes[child][0:6]), [12] / [13] the left / right child's
+        reference (int32 bits), [14:16] zero;
+  tris  [2, T, 3, 4] f32, tri_p[:, prim_ids] (leaf order), vertices as
+        stored (not p0, e1, e2: one layout for static and moving scenes),
+        lane 3 of vertex 0 the triangle's id (int32 bits).
+A reference >= 0 is an inner node's record; < 0 is a leaf, ~ref =
+first << 3 | count, its triangles tris[:, first:first + count].
 """
 
 import dataclasses
-import weakref
 
 import numpy as np
 import torch
@@ -36,9 +51,6 @@ STACK_DEPTH = 64
 
 # launches of the CUDA kernel, per variant; the plain version never counts
 launch_counts = {'closest_hit': 0, 'any_hit': 0}
-
-# id -> weak reference of each node tensor whose depth check_depth passed
-_depth_checked = {}
 
 
 def reset_launch_counts():
@@ -150,33 +162,92 @@ def tree_depth(nodes):
     return int(depth.max())
 
 
+def _refuse_depth(depth):
+    """Raise for a tree of more levels than the traversal's stack holds
+    entries: a depth-first walk of a d-level tree holds at most d."""
+    if depth > STACK_DEPTH:
+        raise ValueError(f'BVH of {depth} levels or more; the traversal '
+                         f'stack holds {STACK_DEPTH}')
+
+
 def check_depth(nodes):
     """Raise when the tree of nodes (a tensor) is too deep for the
-    traversal's stack: a depth-first walk of a d-level tree holds at most
-    d entries. Reads the nodes once per tensor."""
-    key = id(nodes)
-    ref = _depth_checked.get(key)
-    if ref is not None and ref() is nodes:
-        return
-    depth = tree_depth(nodes.cpu().numpy())
-    if depth > STACK_DEPTH:
-        raise ValueError(f'BVH of {depth} levels; the traversal stack '
-                         f'holds {STACK_DEPTH}')
-    _depth_checked[key] = weakref.ref(
-        nodes, lambda _: _depth_checked.pop(key, None))
+    traversal's stack."""
+    _refuse_depth(tree_depth(nodes.cpu().numpy()))
+
+
+@dataclasses.dataclass
+class PackedBVH:
+    """The tables the traversal kernel walks (pack_bvh; layout in the
+    module's docstring)."""
+    records: torch.Tensor   # [M, 16] f32, the inner nodes breadth first
+    tris: torch.Tensor      # [2, T, 3, 4] f32, leaf-ordered triangles
+    root: int               # the root's reference
+    nodes: torch.Tensor     # the [N, 8] nodes packed (the traversal's tie)
+    depth: int              # the tree's levels, at most STACK_DEPTH
+
+
+def leaf_ref(first, count):
+    """The reference of a leaf (ints or int64 tensors)."""
+    return ~((first << 3) | count)
+
+
+def pack_bvh(nodes, prim_ids, tri_p):
+    """The kernel's tables of a flattened tree (nodes [N, 8], prim_ids [T]
+    int32, tri_p [2, T, 3, 3]), built with torch on the tree's device.
+    Every box and vertex is copied bit for bit. Raises for a tree deeper
+    than the traversal's stack."""
+    dev = nodes.device
+    T = prim_ids.shape[0]
+    if T >= 1 << 28:
+        raise ValueError(f'{T} triangles: a leaf reference holds < 2^28')
+    leaf = nodes[:, 7] > 0.0
+    left = nodes[:, 6].long()
+    right = (-nodes[:, 7]).long()
+    # breadth-first order of the inner nodes, a level a round
+    levels = []
+    frontier = torch.zeros(1, dtype=torch.int64, device=dev)
+    while True:
+        frontier = frontier[~leaf[frontier]]
+        if frontier.numel() == 0:
+            break
+        levels.append(frontier)
+        # the inner levels and the leaves below the deepest of them
+        _refuse_depth(len(levels) + 1)
+        frontier = torch.stack([left[frontier], right[frontier]],
+                               1).reshape(-1)
+    order = torch.cat(levels) if levels else torch.zeros(
+        0, dtype=torch.int64, device=dev)
+    rec_of = torch.full((nodes.shape[0],), -1, dtype=torch.int64,
+                        device=dev)
+    rec_of[order] = torch.arange(order.numel(), device=dev)
+    ref = torch.where(leaf, leaf_ref(left, nodes[:, 7].long()), rec_of)
+    bits = nodes.contiguous().view(torch.int32)
+    lc, rc = left[order], right[order]
+    records = torch.cat(
+        [bits[lc, 0:6], bits[rc, 0:6], ref[lc, None].int(),
+         ref[rc, None].int(),
+         torch.zeros((order.numel(), 2), dtype=torch.int32, device=dev)],
+        1).view(torch.float32)
+    tp = tri_p[:, prim_ids.long()].contiguous().view(torch.int32)
+    lane = torch.zeros(tp.shape[:3] + (1,), dtype=torch.int32, device=dev)
+    lane[:, :, 0, 0] = prim_ids.int()
+    tris = torch.cat([tp, lane], -1).view(torch.float32)
+    return PackedBVH(records=records, tris=tris,
+                     root=int(ref[0]) if bool(leaf[0]) else 0,
+                     nodes=nodes, depth=len(levels) + 1)
 
 
 def attach_bvh(scene):
     """The scene with a BVH built by build_bvh over both keyframes of its
-    triangles, on its device, and use_bvh set. Raises when the tree is too
-    deep for the traversal (check_depth)."""
+    triangles, on its device, its kernel tables (pack_bvh) and use_bvh
+    set. Raises when the tree is too deep for the traversal (pack_bvh)."""
     nodes, prim_ids = build_bvh(scene.tri_p.cpu().numpy())
     nodes = torch.as_tensor(nodes, device=scene.device)
-    check_depth(nodes)
+    prim_ids = torch.as_tensor(prim_ids, device=scene.device)
     return dataclasses.replace(
-        scene, bvh_nodes=nodes,
-        bvh_prim_ids=torch.as_tensor(prim_ids, device=scene.device),
-        use_bvh=True)
+        scene, bvh_nodes=nodes, bvh_prim_ids=prim_ids,
+        bvh_packed=pack_bvh(nodes, prim_ids, scene.tri_p), use_bvh=True)
 
 
 # ---------------------------------------------------------------------------
@@ -246,8 +317,8 @@ def traverse_reference(nodes, prim_ids, tri_p, org, d, time, min_t, max_t,
 
     Returns (t, id, u, v) per ray, t = inf and id 0 where nothing is hit,
     or, with any_hit, the best t (finite where occluded). stats: optional
-    dict that receives per-ray int64 counts 'inner' (inner nodes visited)
-    and 'tests' (triangles tested)."""
+    dict that receives per-ray int64 counts 'inner' (inner nodes visited),
+    'leaves' (leaves visited) and 'tests' (triangles tested)."""
     R = org.shape[0]
     dev = org.device
     T = prim_ids.shape[0]
@@ -259,6 +330,7 @@ def traverse_reference(nodes, prim_ids, tri_p, org, d, time, min_t, max_t,
     best_u = torch.zeros(R, device=dev)
     best_v = torch.zeros(R, device=dev)
     inner = torch.zeros(R, dtype=torch.int64, device=dev)
+    leaves = torch.zeros(R, dtype=torch.int64, device=dev)
     tests = torch.zeros(R, dtype=torch.int64, device=dev)
     act = torch.arange(R, device=dev)
     while act.numel():
@@ -270,6 +342,7 @@ def traverse_reference(nodes, prim_ids, tri_p, org, d, time, min_t, max_t,
         if lr.numel():
             first = node[leaf, 6].to(torch.int64)
             n = node[leaf, 7].to(torch.int64)
+            leaves[lr] += 1
             tests[lr] += n
             for k in range(MAX_LEAF):
                 pid = prim_ids[torch.clamp(first + k, max=T - 1)].long()
@@ -306,7 +379,7 @@ def traverse_reference(nodes, prim_ids, tri_p, org, d, time, min_t, max_t,
             done |= torch.isfinite(best_t[act])
         act = act[~done]
     if stats is not None:
-        stats.update(inner=inner, tests=tests)
+        stats.update(inner=inner, leaves=leaves, tests=tests)
     if any_hit:
         return best_t
     return best_t, best_id, best_u, best_v
@@ -321,29 +394,43 @@ def _ptr(x):
 
 
 def traverse(nodes, prim_ids, tri_p, org, d, time, min_t, max_t, any_hit,
-             has_motion):
-    """The traversal of every ray. CPU tensors run traverse_reference;
-    CUDA tensors launch the kernel (or raise). Returns (t, id, u, v) per
-    ray (t = inf, id 0 where nothing is hit) or, with any_hit, occluded
-    (bool) per ray. Raises for a tree deeper than the stack
-    (check_depth), however the nodes reached the scene."""
-    check_depth(nodes)
+             has_motion, packed=None):
+    """The traversal of every ray. CPU tensors run traverse_reference on
+    the nodes; CUDA tensors launch the kernel on packed, pack_bvh's
+    tables of this very node tensor (raises without them). Returns (t,
+    id, u, v) per ray (t = inf, id 0 where nothing is hit) or, with
+    any_hit, occluded (bool) per ray. Raises for tables packed from
+    another node tensor, on either device, and for a tree deeper than
+    the stack (pack_bvh checked the tables' tree; check_depth checks
+    nodes walked without tables)."""
+    if packed is not None and packed.nodes is not nodes:
+        raise ValueError('these BVH tables were packed (pack_bvh) from '
+                         'another node tensor: pack the tree the scene '
+                         'holds (attach_bvh does)')
     if not org.is_cuda:
+        if packed is None:
+            check_depth(nodes)
         out = traverse_reference(nodes, prim_ids, tri_p, org, d, time, min_t,
                                  max_t, any_hit, has_motion)
         return torch.isfinite(out) if any_hit else out
+    if packed is None:
+        raise ValueError('the BVH kernel walks the tables that pack_bvh '
+                         'built from these nodes (attach_bvh stores them on '
+                         'the scene): none were given')
     dev = org.device
-    R, T, N = org.shape[0], prim_ids.shape[0], nodes.shape[0]
+    R, T = org.shape[0], prim_ids.shape[0]
     check = cuda_build.check
-    check(nodes, 'nodes', torch.float32, (N, 8), dev)
-    check(prim_ids, 'prim_ids', torch.int32, (T,), dev)
-    check(tri_p, 'tri_p', torch.float32, (2, T, 3, 3), dev)
+    M = packed.records.shape[0]
+    check(packed.records, 'records', torch.float32, (M, 16), dev)
+    check(packed.tris, 'tris', torch.float32, (2, T, 3, 4), dev)
     check(org, 'org', torch.float32, (R, 3), dev)
     check(d, 'dir', torch.float32, (R, 3), dev)
     for x, name in ((time, 'time'), (min_t, 'min_t'), (max_t, 'max_t')):
         check(x, name, torch.float32, (R,), dev)
-    if nodes.data_ptr() % 16:
-        raise ValueError('nodes must be 16-byte aligned (float4 reads)')
+    for x, name in ((packed.records, 'records'), (packed.tris, 'tris')):
+        if x.data_ptr() % 16:
+            raise ValueError(f'{name} must be 16-byte aligned (float4 '
+                             f'reads)')
     if any_hit:
         out = occ = torch.empty(R, dtype=torch.bool, device=dev)
         res = (None,) * 4
@@ -354,8 +441,9 @@ def traverse(nodes, prim_ids, tri_p, org, d, time, min_t, max_t, any_hit,
                      torch.empty(R, dtype=torch.float32, device=dev))
         occ = None
     err = cuda_build.load_library().bvh_traverse(
-        *map(_ptr, (nodes, prim_ids, tri_p, org, d, time, min_t, max_t)),
-        R, T, int(has_motion), int(any_hit), *map(_ptr, res), _ptr(occ),
+        _ptr(packed.records), packed.root, _ptr(packed.tris),
+        packed.tris.shape[1], *map(_ptr, (org, d, time, min_t, max_t)), R,
+        int(has_motion), int(any_hit), *map(_ptr, res), _ptr(occ),
         cuda_build.stream_of(dev))
     cuda_build.raise_on_error(err, f'bvh_traverse (any_hit={any_hit})')
     launch_counts['any_hit' if any_hit else 'closest_hit'] += 1
@@ -368,7 +456,8 @@ def intersect_bvh(scene, org, d, time, min_t, max_t):
     t, tid, u, v = traverse(scene.bvh_nodes, scene.bvh_prim_ids, scene.tri_p,
                             org.contiguous(), d.contiguous(),
                             time.contiguous(), min_t.contiguous(),
-                            max_t.contiguous(), False, scene.has_motion)
+                            max_t.contiguous(), False, scene.has_motion,
+                            scene.bvh_packed)
     hit = torch.isfinite(t)
     return hit, tid, torch.where(hit, t, torch.zeros_like(t)), u, v
 
@@ -378,4 +467,4 @@ def occluded_bvh(scene, org, d, time, min_t, max_t):
     return traverse(scene.bvh_nodes, scene.bvh_prim_ids, scene.tri_p,
                     org.contiguous(), d.contiguous(), time.contiguous(),
                     min_t.contiguous(), max_t.contiguous(), True,
-                    scene.has_motion)
+                    scene.has_motion, scene.bvh_packed)

@@ -82,9 +82,17 @@ def shard_chains(mesh, tree):
 
 def replicate(mesh, tree):
     """One copy of tree per group, its tensors on the group's device (a
-    dataclass with a ``device`` field, as SceneData, gets it set)."""
+    dataclass with a ``device`` field, as SceneData, gets it set). A
+    tensor held twice is copied once, so the copy keeps the tree's ties
+    (a scene's BVH nodes and the tables packed from them, ops/bvh.py)."""
     def on(dev):
-        out = tree_map(lambda x: x.to(dev), tree)
+        moved = {}
+
+        def to(x):
+            if id(x) not in moved:
+                moved[id(x)] = x.to(dev)
+            return moved[id(x)]
+        out = tree_map(to, tree)
         if dataclasses.is_dataclass(out) and any(
                 f.name == 'device' for f in dataclasses.fields(out)):
             out = dataclasses.replace(out, device=dev)

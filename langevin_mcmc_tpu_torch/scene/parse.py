@@ -355,10 +355,9 @@ def parse_scene_host(filename, film_wh=None):
                 raise ValueError(f'unsupported shape {stype}')
             area_light_id = -1
             for c in child:
+                # any emitter nested in a shape is an area light, whatever
+                # its type, as in the JAX parser
                 if c.tag == 'emitter':
-                    if c.get('type') != 'area':
-                        raise NotImplementedError(
-                            f'{c.get("type")} emitters are not ported yet')
                     radiance = np.ones(3)
                     for g in c:
                         if g.get('name') == 'radiance':

@@ -121,6 +121,7 @@ class SceneData:
     # use_bvh False, as the JAX parser does)
     bvh_nodes: torch.Tensor = None    # [N, 8] flattened nodes
     bvh_prim_ids: torch.Tensor = None  # [T] int32 leaf-order triangle ids
+    bvh_packed: object = None   # ops/bvh.PackedBVH, the kernel's tables
     use_bvh: bool = False
 
 
@@ -219,12 +220,13 @@ def build_scene(host, device='cuda'):
     'num_lights', 'env_light_id', 'has_motion', 'camera', a dict of
     camera_arrays, and 'textures', a dict of TextureBuilder.host_arrays()).
     Optional keys 'bvh_nodes', 'bvh_prim_ids' and 'use_bvh' default to the
-    JAX parser's placeholder: zeros((1, 8)), arange(T), False.
+    JAX parser's placeholder: zeros((1, 8)), arange(T), False; with
+    use_bvh the kernel's tables are packed (ops/bvh.pack_bvh).
     The default is the card; a machine without one must ask for
     device='cpu'. Both keyframes of tri_p and tri_n go to the device; the
     packed rows and the walk tables hold keyframe 0, which is all a static
     scene reads and a moving one never does."""
-    from ..ops import chunkwalk, sweep_isect
+    from ..ops import bvh, chunkwalk, sweep_isect
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to build the "
@@ -253,6 +255,11 @@ def build_scene(host, device='cuda'):
     lw = np.asarray(host['light_weight'], np.float32)
     radius = np.float32(host['bsphere_radius'])
     mat_tex = np.stack([np.asarray(host[k], np.int32) for k in TEX_SLOTS], 1)
+    use_bvh = bool(host.get('use_bvh', False))
+    bvh_nodes = t(np.array(host.get('bvh_nodes', np.zeros((1, 8))),
+                           np.float32))
+    bvh_prim_ids = t(np.array(host.get('bvh_prim_ids',
+                                       np.arange(tri_p.shape[1])), np.int32))
     return SceneData(
         tri_p=t(tri_p), tri_n=f32('tri_n'), tri_st=f32('tri_st'),
         tri_mat=i32('tri_mat'), tri_light=i32('tri_light'),
@@ -293,9 +300,7 @@ def build_scene(host, device='cuda'):
         num_lights=int(host['num_lights']), width=cam.width,
         height=cam.height, light_weight_sum=float(lw.sum()),
         device=device,
-        bvh_nodes=t(np.array(host.get('bvh_nodes', np.zeros((1, 8))),
-                               np.float32)),
-        bvh_prim_ids=t(np.array(host.get('bvh_prim_ids',
-                                           np.arange(tri_p.shape[1])),
-                                  np.int32)),
-        use_bvh=bool(host.get('use_bvh', False)))
+        bvh_nodes=bvh_nodes, bvh_prim_ids=bvh_prim_ids,
+        bvh_packed=bvh.pack_bvh(bvh_nodes, bvh_prim_ids, t(tri_p))
+        if use_bvh else None,
+        use_bvh=use_bvh)

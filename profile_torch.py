@@ -16,7 +16,11 @@ CONFIG (no CONFIG: box, open and cache):
   motion      the open scene with --motion, path F: every ray query is the
               motion brute force (stage intersect_bruteforce, which the
               any-hit queries call too), no bake;
-  iso         the box with the isotropic-only chain, path G.
+  iso         the box with the isotropic-only chain, path G;
+  bvh         path F's moving open scene with a BVH attached (attach_bvh),
+              path I: every ray query is the BVH kernel (stage traverse,
+              the wrapper; the kernel's device time and share of the
+              step's device time are printed from the profile).
 Each is MALA (iso: the isotropic small step) at 1024x768, maxdepth 8,
 65,536 chains, with a 65,536-sample bootstrap. The chain step is warmed
 up and timed over 3 steps (no syncs); with --time-only that is all,
@@ -66,7 +70,8 @@ def main():
                'mmlt_lc': dict(scene='box', large_step='multiplexed',
                                light_coords=True),
                'motion': dict(scene='open', motion=True),
-               'iso': dict(scene='box', kernel='iso')}
+               'iso': dict(scene='box', kernel='iso'),
+               'bvh': dict(scene='open', motion=True)}
     args = sys.argv[1:]
     time_only = '--time-only' in args
     chosen = [a for a in args if a != '--time-only'] or ['box', 'open',
@@ -77,21 +82,25 @@ def main():
             os.path.join(HERE, 'smoke_out', 'profile', name),
             num_init_samples=INIT_SAMPLES, **configs[name])
         profile_scene(xml, name, card, prefill=name == 'cache',
-                      time_only=time_only)
+                      time_only=time_only, attach=name == 'bvh')
 
 
-def profile_scene(xml, label, card, prefill=False, time_only=False):
+def profile_scene(xml, label, card, prefill=False, time_only=False,
+                  attach=False):
     """The stage and kernel breakdowns of one configuration's chain step
     (prefill: the cache rows pre-filled from the seed states;
-    time_only: the unsynchronised step time alone)."""
+    time_only: the unsynchronised step time alone; attach: a BVH
+    attached, so every query takes the BVH kernel)."""
     from langevin_mcmc_tpu_torch.scene.parse import parse_scene
     from langevin_mcmc_tpu_torch.integrators import mlt
     from langevin_mcmc_tpu_torch.mcmc import chain, cache
     from langevin_mcmc_tpu_torch.path import replay, trace
-    from langevin_mcmc_tpu_torch.ops import chunkwalk, intersect
+    from langevin_mcmc_tpu_torch.ops import bvh, chunkwalk, intersect
     import chip_smoke
 
     scene, opts, _ = parse_scene(xml, device='cuda')
+    if attach:
+        scene = bvh.attach_bvh(scene)
     gen = torch.Generator(device='cuda').manual_seed(0)
     with torch.no_grad():
         b, length_dist, banked = mlt.bootstrap(scene, opts, gen,
@@ -131,7 +140,7 @@ def profile_scene(xml, label, card, prefill=False, time_only=False):
                   (cache, 'eval_pdf_cache'), (cache, 'sample_cache'),
                   (cache, 'push_batch'), (chunkwalk, 'sort_rays'),
                   (chunkwalk, 'walk_staged'), (chunkwalk, 'walk_resident'),
-                  (intersect, 'intersect_bruteforce'),
+                  (intersect, 'intersect_bruteforce'), (bvh, 'traverse'),
                   (mlt, 'splat')]
         saved = []
         for mod, name in stages:
@@ -180,6 +189,12 @@ def profile_scene(xml, label, card, prefill=False, time_only=False):
           f'(profiler on), {dev_total / STEPS:.1f} ms/step device kernel '
           f'time = busy share {busy:.3f} of the unprofiled step, '
           f'{launches / STEPS:.0f} kernel launches/step')
+    bvh_ms = sum(e.self_device_time_total for e in events
+                 if 'bvh_kernel' in e.key) / 1e3 / STEPS
+    if bvh_ms:
+        print(f'BVH kernel: {bvh_ms:.2f} ms/step device time = '
+              f'{bvh_ms / (dev_total / STEPS):.4f} of the step\'s device '
+              f'time, {bvh_ms / plain_ms:.4f} of the unprofiled step')
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:15]
     rows = []
     for e in top:
@@ -196,6 +211,7 @@ def profile_scene(xml, label, card, prefill=False, time_only=False):
                           device_ms=dev_total / STEPS,
                           busy_share=busy,
                           launches_per_step=launches / STEPS,
+                          bvh_kernel_ms=bvh_ms,
                           top_kernels=rows)))
 
 

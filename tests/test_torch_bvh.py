@@ -37,7 +37,7 @@ from langevin_mcmc_tpu_torch.native import (build_bvh_native,
                                             vertex_normals_native)
 from langevin_mcmc_tpu_torch.ops import bvh, intersect
 from langevin_mcmc_tpu_torch.scene.mesh import compute_vertex_normals
-from torch_parity import assert_close_most, port_scene
+from torch_parity import assert_close_most, left_chain_nodes, port_scene
 
 torch.set_num_threads(1)
 R = 1024
@@ -148,8 +148,9 @@ def test_native_bvh_hits_equal_bruteforce(scenes):
     nodes, prims = build_bvh_native(tp.min(axis=(0, 2)), tp.max(axis=(0, 2)))
     assert nodes.dtype == np.float32 and prims.dtype == np.int32
     assert sorted(prims.tolist()) == list(range(ts.num_tris))
-    sn = dataclasses.replace(ts, bvh_nodes=torch.as_tensor(nodes),
-                             bvh_prim_ids=torch.as_tensor(prims))
+    nodes, prims = torch.as_tensor(nodes), torch.as_tensor(prims)
+    sn = dataclasses.replace(ts, bvh_nodes=nodes, bvh_prim_ids=prims,
+                             bvh_packed=bvh.pack_bvh(nodes, prims, ts.tri_p))
     rays = [torch.as_tensor(x) for x in _rays(ts, 256, seed=13)]
     hb, _, tb, _, _ = intersect.intersect_bruteforce(ts, *rays)
     hv, _, tv, _, _ = bvh.intersect_bvh(sn, *rays)
@@ -208,28 +209,16 @@ def test_attach_bvh_refuses_a_tree_too_deep(scenes, monkeypatch):
         bvh.attach_bvh(ts)
 
 
-def _left_chain(m, T):
-    """Nodes of a tree of m + 1 levels: m inner nodes down the left side,
-    each with a leaf of one triangle on its right, every box around the
-    whole scene, so that a depth-first walk stacks one node a level."""
-    nodes = np.zeros((2 * m + 1, 8), np.float32)
-    nodes[:, 0:3], nodes[:, 3:6] = -1e3, 1e3
-    for i in range(m):
-        nodes[i, 6] = i + 1
-        nodes[i, 7] = -(m + 1 if i == m - 1 else 2 * m - i)
-    nodes[m:, 6] = np.arange(m + 1) % T
-    nodes[m:, 7] = 1.0
-    return torch.as_tensor(nodes)
-
-
 @pytest.mark.parametrize('extra', [0, 1])
 def test_traversal_refuses_a_tree_deeper_than_its_stack(scenes, extra):
-    """However a tree reaches the scene (here set by hand, not through
-    attach_bvh), the traversal checks its depth before it walks."""
+    """However a tree reaches the scene (here set by hand, without the
+    tables of pack_bvh, which checks too), the traversal checks its depth
+    before it walks."""
     _, ts = scenes
-    nodes = _left_chain(bvh.STACK_DEPTH - 1 + extra, ts.tri_p.shape[1])
+    nodes = left_chain_nodes(bvh.STACK_DEPTH - 1 + extra, ts.tri_p.shape[1])
     assert bvh.tree_depth(nodes.numpy()) == bvh.STACK_DEPTH + extra
-    scene = dataclasses.replace(ts, bvh_nodes=nodes, use_bvh=True)
+    scene = dataclasses.replace(ts, bvh_nodes=nodes, bvh_packed=None,
+                                use_bvh=True)
     rays = [torch.as_tensor(x) for x in _rays(ts, 64, seed=5)]
     isect, occluded = intersect.make_intersect_fns(scene)
     if extra:

@@ -24,8 +24,11 @@ file, so it also runs on a machine with a card and no JAX):
   CLI refuse unless the CPU is asked for;
 * the BVH traversal (ops/bvh.py): on CPU tensors the wrapper runs the
   plain version and counts no launch; on a card (marked `cuda`) the
-  kernel (csrc/bvh.cu) equals the plain version bit for bit, closest and
-  any hit, on the small box and the small moving open scene.
+  kernel (csrc/bvh.cu, walking pack_bvh's tables) equals the plain
+  version bit for bit, closest and any hit, on the small box, open and
+  moving open scenes at 65,536 and 4,352 rays, on all-dead rays, a
+  root-leaf tree, coincident triangles in different leaves and a tree of
+  STACK_DEPTH levels; without the packed tables it raises.
 """
 
 import dataclasses
@@ -38,9 +41,10 @@ from langevin_mcmc_tpu_torch import testscenes
 from langevin_mcmc_tpu_torch.ops import bvh
 from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
 from langevin_mcmc_tpu_torch.ops import sweep_isect as sw
+from langevin_mcmc_tpu_torch.parallel.mesh import ChainMesh, replicate
 from langevin_mcmc_tpu_torch.scene.parse import parse_scene
-from langevin_mcmc_tpu_torch.utils.tree import tree_map
-from torch_parity import planted_tie_case
+from torch_parity import (coincident_copies, left_chain_nodes,
+                          planted_tie_case, with_triangles)
 
 torch.set_num_threads(1)
 
@@ -227,8 +231,8 @@ def test_cpu_runs_plain_version_without_launches(scene):
 def _on_card(scene):
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device: the kernel has no CPU mode')
-    return dataclasses.replace(tree_map(lambda x: x.cuda(), scene),
-                               device=torch.device('cuda'))
+    # replicate keeps a BVH's tables tied to the node tensor they packed
+    return replicate(ChainMesh((torch.device('cuda'),), 0, 1), scene)[0]
 
 
 def _kernel_equals_plain(form, sc, tables, rays, splits=None):
@@ -372,14 +376,17 @@ def test_entry_points_default_to_the_card(tmp_path):
     assert parse_scene(xml, device='cpu')[0].tri_p.device.type == 'cpu'
 
 
-@pytest.fixture(scope='module', params=['static', 'motion'])
+BVH_SCENES = {'static': {}, 'open': dict(scene='open'),
+              'motion': dict(scene='open', motion=True)}
+
+
+@pytest.fixture(scope='module', params=list(BVH_SCENES))
 def bvh_scene(request, tmp_path_factory):
-    """The small box (static) or the small moving open scene, with a BVH
-    attached, on the CPU."""
-    kw = dict(scene='open', motion=True) if request.param == 'motion' \
-        else {}
+    """The small box (static), the small open scene or the small moving
+    open scene, with a BVH attached, on the CPU."""
     xml = testscenes.write_scene(str(tmp_path_factory.mktemp('bvh')),
-                                 small=True, width=32, height=24, **kw)
+                                 small=True, width=32, height=24,
+                                 **BVH_SCENES[request.param])
     return bvh.attach_bvh(parse_scene(xml, device='cpu')[0])
 
 
@@ -390,31 +397,12 @@ def _timed_rays(scene, n, device):
     return [x.to(device) for x in (org, d, time, mn, mx)]
 
 
-def test_bvh_wrapper_runs_the_plain_version_on_cpu(bvh_scene):
-    """On CPU tensors the BVH wrapper runs traverse_reference and counts
-    no launch; its any hit equals the closest hit's hit set."""
-    bvh.reset_launch_counts()
-    rays = _timed_rays(bvh_scene, 1000, 'cpu')
-    tabs = (bvh_scene.bvh_nodes, bvh_scene.bvh_prim_ids, bvh_scene.tri_p)
-    t, tid, _, _ = bvh.traverse(*tabs, *rays, False, bvh_scene.has_motion)
-    occ = bvh.traverse(*tabs, *rays, True, bvh_scene.has_motion)
-    hit = torch.isfinite(t)
-    assert torch.equal(occ, hit) and hit.any() and (~hit).any()
-    assert (tid[~hit] == 0).all()
-    assert not any(bvh.launch_counts.values())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize('any_hit', [False, True])
-def test_bvh_kernel_matches_plain_on_card(bvh_scene, any_hit):
-    """The BVH kernel (csrc/bvh.cu) equals traverse_reference bit for bit
-    (t, id, u, v or occluded), static and moving, one launch counted;
-    inputs of the wrong dtype raise."""
-    sc = _on_card(bvh_scene)
-    rays = _timed_rays(sc, 4096, 'cuda')
+def _bvh_equals_plain(sc, rays, any_hit):
+    """The kernel (one launch, counted under its variant) against
+    traverse_reference, bit for bit. Returns the plain version's output."""
     tabs = (sc.bvh_nodes, sc.bvh_prim_ids, sc.tri_p)
     bvh.reset_launch_counts()
-    got = bvh.traverse(*tabs, *rays, any_hit, sc.has_motion)
+    got = bvh.traverse(*tabs, *rays, any_hit, sc.has_motion, sc.bvh_packed)
     want = bvh.traverse_reference(*tabs, *rays, any_hit, sc.has_motion)
     torch.cuda.synchronize()
     if any_hit:
@@ -422,10 +410,108 @@ def test_bvh_kernel_matches_plain_on_card(bvh_scene, any_hit):
     else:
         for a, b in zip(got, want):
             assert torch.equal(a, b)
-        assert torch.isfinite(got[0]).any()
     key = 'any_hit' if any_hit else 'closest_hit'
     assert bvh.launch_counts == {k: int(k == key)
                                  for k in bvh.launch_counts}
+    return want
+
+
+def test_bvh_wrapper_runs_the_plain_version_on_cpu(bvh_scene):
+    """On CPU tensors the BVH wrapper runs traverse_reference (with or
+    without the packed tables) and counts no launch; its any hit equals
+    the closest hit's hit set."""
+    bvh.reset_launch_counts()
+    rays = _timed_rays(bvh_scene, 1000, 'cpu')
+    tabs = (bvh_scene.bvh_nodes, bvh_scene.bvh_prim_ids, bvh_scene.tri_p)
+    t, tid, _, _ = bvh.traverse(*tabs, *rays, False, bvh_scene.has_motion)
+    occ = bvh.traverse(*tabs, *rays, True, bvh_scene.has_motion,
+                       bvh_scene.bvh_packed)
+    hit = torch.isfinite(t)
+    assert torch.equal(occ, hit) and hit.any() and (~hit).any()
+    assert (tid[~hit] == 0).all()
+    assert not any(bvh.launch_counts.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [65536, 4352])
+@pytest.mark.parametrize('any_hit', [False, True])
+def test_bvh_kernel_matches_plain_on_card(bvh_scene, any_hit, n):
+    """The BVH kernel (csrc/bvh.cu) equals traverse_reference bit for bit
+    (t, id, u, v or occluded) on the box, the open and the moving open
+    scene, at the chain's and the large step's ray counts, one launch
+    counted; inputs of the wrong dtype raise."""
+    sc = _on_card(bvh_scene)
+    rays = _timed_rays(sc, n, 'cuda')
+    want = _bvh_equals_plain(sc, rays, any_hit)
+    assert torch.isfinite(want if any_hit else want[0]).any()
     with pytest.raises(ValueError):
-        bvh.traverse(*tabs, rays[0].double(), *rays[1:], any_hit,
-                     sc.has_motion)
+        bvh.traverse(sc.bvh_nodes, sc.bvh_prim_ids, sc.tri_p,
+                     rays[0].double(), *rays[1:], any_hit, sc.has_motion,
+                     sc.bvh_packed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('any_hit', [False, True])
+def test_bvh_kernel_all_dead_on_card(bvh_scene, any_hit):
+    sc = _on_card(bvh_scene)
+    rays = _timed_rays(sc, 4352, 'cuda')
+    rays[4] = torch.zeros_like(rays[4])
+    want = _bvh_equals_plain(sc, rays, any_hit)
+    assert not torch.isfinite(want if any_hit else want[0]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('any_hit', [False, True])
+def test_bvh_kernel_root_leaf_on_card(bvh_scene, any_hit):
+    """A tree whose root is a leaf (3 triangles): no record at all."""
+    sc = with_triangles(_on_card(bvh_scene),
+                        bvh_scene.tri_p[:, :3].numpy())
+    assert sc.bvh_packed.records.shape[0] == 0 and sc.bvh_packed.root < 0
+    _bvh_equals_plain(sc, _timed_rays(sc, 4352, 'cuda'), any_hit)
+
+
+@pytest.mark.cuda
+def test_bvh_kernel_planted_tie_on_card(bvh_scene):
+    """Coincident copies of a triangle in different leaves: the first in
+    depth-first order wins, as in traverse_reference."""
+    sc, copies = coincident_copies(_on_card(bvh_scene), 5, 5)
+    cen = sc.tri_p[0, 5].mean(0)
+    rays = _timed_rays(sc, 4352, 'cuda')
+    rays[1] = cen - rays[0]
+    rays[1] = rays[1] / rays[1].norm(dim=1, keepdim=True)
+    rays[2] = torch.zeros_like(rays[2])
+    rays[4] = torch.full_like(rays[4], float('inf'))
+    t, tid, _, _ = _bvh_equals_plain(sc, rays, False)
+    on_copy = torch.isin(tid, torch.tensor(copies, device='cuda'))
+    assert (on_copy & torch.isfinite(t)).sum() > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('any_hit', [False, True])
+def test_bvh_kernel_deepest_tree_on_card(bvh_scene, any_hit):
+    """A tree of STACK_DEPTH levels, each inner node's children both hit:
+    the kernel's stack holds STACK_DEPTH - 1 references."""
+    sc = _on_card(bvh_scene)
+    nodes = left_chain_nodes(bvh.STACK_DEPTH - 1, sc.num_tris).cuda()
+    assert bvh.tree_depth(nodes.cpu().numpy()) == bvh.STACK_DEPTH
+    sc = dataclasses.replace(
+        sc, bvh_nodes=nodes,
+        bvh_packed=bvh.pack_bvh(nodes, sc.bvh_prim_ids, sc.tri_p))
+    _bvh_equals_plain(sc, _timed_rays(sc, 4352, 'cuda'), any_hit)
+
+
+@pytest.mark.cuda
+def test_bvh_kernel_needs_packed_tables_on_card(bvh_scene):
+    """On the card the traversal walks pack_bvh's tables and raises
+    without them (or with the tables of another node tensor, here a copy
+    of the tree): no fallback."""
+    sc = _on_card(bvh_scene)
+    rays = _timed_rays(sc, 256, 'cuda')
+    bvh.reset_launch_counts()
+    other = bvh.pack_bvh(sc.bvh_nodes.clone(), sc.bvh_prim_ids, sc.tri_p)
+    for packed in (None, other):
+        bare = dataclasses.replace(sc, bvh_packed=packed)
+        for fn in (bvh.intersect_bvh, bvh.occluded_bvh):
+            with pytest.raises(ValueError, match='pack_bvh'):
+                fn(bare, *rays)
+    assert not any(bvh.launch_counts.values())

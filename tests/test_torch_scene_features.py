@@ -29,7 +29,8 @@ from langevin_mcmc_tpu.utils import vecmath as jvm
 from langevin_mcmc_tpu_torch import testscenes
 from langevin_mcmc_tpu_torch.interop import textures_from_numpy
 from langevin_mcmc_tpu_torch.scene import textures as ttex
-from langevin_mcmc_tpu_torch.scene.parse import parse_scene, parse_scene_host
+from langevin_mcmc_tpu_torch.scene.parse import (LIGHT_AREA, parse_scene,
+                                                  parse_scene_host)
 from langevin_mcmc_tpu_torch.scene.scenedata import HOST_FIELDS
 from langevin_mcmc_tpu_torch.utils import vecmath as tvm
 from torch_parity import to_np
@@ -248,3 +249,27 @@ def test_ported_features_parse(open_xml):
     the rough dielectric of the open scene parse without raising."""
     ts, opts, _ = parse_scene(open_xml, device='cpu')
     assert opts.mala and ts.num_tris > 0
+
+
+def test_nested_emitter_of_any_type_is_an_area_light(open_xml, tmp_path):
+    """An <emitter> nested in a <shape> is an area light whatever its
+    type, as the JAX parser takes it: a quad with a nested point emitter
+    gives the JAX package's light arrays and triangle light ids."""
+    d = os.path.dirname(open_xml)
+    os.symlink(os.path.join(d, 'floor.obj'), tmp_path / 'floor.obj')
+    nested = ('<emitter type="point"><rgb name="radiance" '
+              'value="3, 2, 1"/></emitter>')
+    xml = tmp_path / 'scene.xml'
+    xml.write_text(_SCENE_HEAD.format(dpt=_MALA.format(''), cam=_CAM,
+                                      extra='', toworld=nested))
+    host, _, _ = parse_scene_host(str(xml))
+    js, _, _ = jax_parse(str(xml))
+    assert host['light_type'].tolist() == [LIGHT_AREA] and js.num_lights == 1
+    np.testing.assert_array_equal(host['light_emission'], [[3, 2, 1]])
+    for k in ('light_type', 'light_emission', 'light_weight', 'light_cdf',
+              'light_tri', 'light_tri_cdf', 'light_ntri', 'light_inv_area',
+              'tri_light'):
+        np.testing.assert_array_equal(np.asarray(host[k]),
+                                      np.asarray(getattr(js, k)),
+                                      err_msg=k)
+    assert (np.asarray(host['tri_light']) == 0).all()

@@ -127,3 +127,39 @@ def planted_tie_case(scene, tables=None, n_alive=700, n_dead=300, seed=11):
     rays = tuple(torch.as_tensor(x, dtype=torch.float32)
                  for x in (org, d, mn, mx))
     return pack, ids, lo, hi, rays
+
+
+def left_chain_nodes(m, T):
+    """BVH nodes of a tree of m + 1 levels: m inner nodes down the left
+    side, each with a leaf of one triangle (of T) on its right, every box
+    around the whole scene, so that a depth-first walk stacks one node a
+    level."""
+    nodes = np.zeros((2 * m + 1, 8), np.float32)
+    nodes[:, 0:3], nodes[:, 3:6] = -1e3, 1e3
+    for i in range(m):
+        nodes[i, 6] = i + 1
+        nodes[i, 7] = -(m + 1 if i == m - 1 else 2 * m - i)
+    nodes[m:, 6] = np.arange(m + 1) % T
+    nodes[m:, 7] = 1.0
+    return torch.as_tensor(nodes)
+
+
+def with_triangles(scene, tri_p):
+    """scene (with a BVH) whose triangles are tri_p [2, T, 3, 3] (numpy),
+    with the BVH and kernel tables of those (ops/bvh.attach_bvh)."""
+    from langevin_mcmc_tpu_torch.ops import bvh
+    return bvh.attach_bvh(dataclasses.replace(
+        scene, tri_p=torch.as_tensor(tri_p, device=scene.device),
+        num_tris=tri_p.shape[1]))
+
+
+def coincident_copies(scene, tie, k):
+    """scene with k exact copies of triangle `tie` appended (ids T..T+k-1)
+    and its BVH rebuilt: the copies share one centroid, so the build
+    splits them across leaves. Returns (scene, ids of tie and its
+    copies)."""
+    tp = scene.tri_p.cpu().numpy()
+    T = tp.shape[1]
+    sc = with_triangles(scene, np.concatenate([tp] + [tp[:, tie:tie + 1]]
+                                              * k, 1))
+    return sc, [tie] + list(range(T, T + k))

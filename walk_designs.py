@@ -4,8 +4,9 @@ large step's 4,261 (padded to 4,352):
 
     python3 walk_designs.py
 
-Each design point is a patched copy of langevin_mcmc_tpu_torch/csrc/,
-built under smoke_out/walk_designs/ (git-ignored), so the committed kernel
+Each design point is a patched copy of langevin_mcmc_tpu_torch/csrc/
+(cuda_build.build_copy), built under smoke_out/walk_designs/ (git-ignored),
+so the committed kernel
 carries no switch for it:
   * committed: the sources as they are;
   * whole_chunk: the sweep (K4) stages whole 512-triangle chunks, a ring of
@@ -21,9 +22,7 @@ resident one (K3) on the same inputs is a shared-memory stage against
 __ldg reads; S = 1 against the default S is in chip_smoke.py's S tables.
 """
 
-import ctypes
 import os
-import shutil
 import sys
 
 import torch
@@ -62,29 +61,12 @@ def build(name):
     """Patch a copy of csrc/ and build it; returns the bound library."""
     from langevin_mcmc_tpu_torch.ops import cuda_build
     sources, patches = DESIGNS[name]
-    src_dir = os.path.join(OUT, name, 'csrc')
-    shutil.rmtree(src_dir, ignore_errors=True)
-    shutil.copytree(cuda_build._CSRC, src_dir)
-    path = os.path.join(src_dir, 'walk.cuh')
-    with open(path) as f:
-        text = f.read()
-    for old, new in patches:
-        if old not in text:
-            raise RuntimeError(f'{name}: patch target not found: {old!r}')
-        text = text.replace(old, new)
-    with open(path, 'w') as f:
-        f.write(text)
-    os.makedirs(cuda_build._BUILD, exist_ok=True)
-    out = os.path.join(OUT, name, 'lib.so')
     print(f'design {name}: ptxas (registers, shared memory):', flush=True)
-    cuda_build._compile(cuda_build._nvcc(),
-                        [os.path.join(src_dir, s) for s in sources], out,
-                        extra_flags=['-Xptxas', '-v'])
-    lib = ctypes.CDLL(out)
-    for entry, argtypes in cuda_build.SIGNATURES.items():
-        if hasattr(lib, entry):
-            getattr(lib, entry).argtypes = argtypes
-            getattr(lib, entry).restype = ctypes.c_int
+    lib, reports = cuda_build.build_copy(
+        os.path.join(OUT, name), [('walk.cuh', a, b) for a, b in patches],
+        sources=sources)
+    for text in reports.values():
+        print(text, end='', flush=True)
     return lib
 
 
