@@ -52,7 +52,14 @@ Phases (any failure exits non-zero before the last line is printed):
      (same tape);
   8. path A, the MALA render through the CLI entry point: 1024x768,
      maxdepth 8, 65,536 chains, 300,000 bootstrap samples, directspp 1,
-     --spp 1 (12 chain iterations); it runs K1/K2;
+     --spp 1 (12 chain iterations, one call of the multi-step); it runs
+     K1/K2. Then the graph phase of path A's configuration
+     (graph_parity): from one bootstrapped state and one generator state,
+     8 eager iterations (make_mlt_step, with no host sync:
+     torch.cuda.set_sync_debug_mode('error')) and the same 8 through the
+     multi-step (a warm-up, the capture, replays): the chain state bit for
+     bit, step.counts and the K1/K2 launches equal, the film to rtol 1e-5;
+     then eager and captured ms an iteration side by side;
   9. path B, the same configuration with H2MC small steps and
      LMCMC_ISECT_BACKEND=pallas, so it runs K4, through render_mlt cut to
      4 chain iterations (PATH_B_STEPS; an H2MC iteration takes ~15-21 s);
@@ -67,15 +74,19 @@ Phases (any failure exits non-zero before the last line is printed):
      perturb replay send their ray queries through K1/K2. It prints the
      large-step lanes of each branch, the cache rows that filled and the
      generated lanes that carried light-coordinate parameters;
- 13. the cache phase: path E's state bootstrapped at full width, cache rows
-     pre-filled from the seed states (paths included), a few chain
-     iterations; the cache branch must run on some lanes;
+ 13. the graph phase of path E's configuration: graph_parity (below,
+     after path A) on path E's state bootstrapped at full width with the
+     cache rows pre-filled from the seed states (paths included), so the
+     cache branch runs (it must, on some lanes); also the gradients that a
+     step now computes on every call (unconditional_cost);
  14. path H, path E's configuration with --spp 6 rendered by two ranks of
      the CLI (--coordinator 127.0.0.1:<free port> --num-processes 2
      --process-id 0/1; each rank is `python3 chip_smoke.py --rank OUT
      CLI-ARGS...`) that share the card, so their collectives take gloo:
-     32,768 chains and 150,000 bootstrap samples a rank, 72 iterations in
-     calls of 16, one cache merge. The ranks' reduced chain films must be
+     32,768 chains and 150,000 bootstrap samples a rank, 72 iterations
+     asked for and 80 run (whole calls of 16, as the JAX package's
+     multihost loop runs them), one cache merge. The ranks' reduced chain
+     films must be
      bit-identical and their b equal, their final films equal to rtol
      1e-5, each film checked, K1/K2 launched on both; per rank its phase
      seconds, ms an iteration, proposals/s, acceptance, peak memory, the
@@ -83,8 +94,12 @@ Phases (any failure exits non-zero before the last line is printed):
      summed proposals/s over path E's;
  15. path F, path D's configuration with --motion (the torus and the quad
      light turn and move between two keyframes, the camera pans, the env
-     map turns): every ray query is the motion brute force in torch (no
-     kernel), the frozen replay and path_grad run without a bake. Before
+     map turns), through render_mlt cut to 4 chain iterations and 65,536
+     bootstrap samples (PATH_F_STEPS, PATH_F_INIT_SAMPLES: the brute force
+     tests every ray in fixed blocks, as the JAX package's does, so a
+     query costs 2.9-3.8x its live rays): every ray query is the motion
+     brute force in torch (no kernel), the frozen replay and path_grad run
+     without a bake. Before
      it, one brute-force closest-hit and one any-hit query at 65,536 rays
      on that scene, timed by CUDA events (the closest hit also at blocks
      of 2^20, 2^22 and 2^24 ray-triangle pairs, each checked equal); after
@@ -98,12 +113,21 @@ Phases (any failure exits non-zero before the last line is printed):
      walk kernel); its proposals/s over path F's and path D's.
 Phase 7 also holds generate_subpath with light-coordinate sampling (mixed
 (s, t) per lane) on the card against the CPU.
-Each render's film must be finite, non-negative, non-zero and 768x1024x3
-(path D's and path F's top rows, the sky, lit too), and each kernel must
-have been launched by the path that runs it (the launch counts are reset
-just before each path and read just after). Each MCMC path prints its
-chain-loop ms per iteration, proposals/s, acceptance rate, bootstrap and
-direct-pass seconds and peak device memory.
+Every MCMC path (A, B, D, E, F, G, H, I) runs its chain loop through
+make_mlt_multi_step (integrators/mlt.py): CUDA graphs of the chain step
+on the card, n_inner iterations a call on the JAX package's schedule. Per
+path it prints the graphs a step and the eager calls between them (named:
+H2MC's torch.linalg.eigh reads its error flags on the host, so path B's
+step is three graphs around two eigh calls), their nodes, the capture and
+instantiate seconds, and n_done against the iterations scheduled, which
+must be equal. Each render's film must be finite, non-negative, non-zero
+and 768x1024x3 (path D's and path F's top rows, the sky, lit too), and
+each kernel must have been launched by the path that runs it (the launch
+counts are reset just before each path and read just after; a captured
+kernel counts once per execution: ops/graphs.py). Each MCMC path prints
+its chain-loop ms per iteration (the warm-up and the capture included),
+proposals/s, acceptance rate, bootstrap and direct-pass seconds and peak
+device memory (the graphs' pool included).
 The line before the last two is {"kernels": [...]}: per kernel its
 launches on its path (K1/K2 also on path E: launches_path_e), max |error|
 against the plain version, its time and
@@ -142,6 +166,10 @@ INIT_SAMPLES = 300000   # numinitsamples of the flagship render
 CHUNK = 32768           # wavefront of the bootstrap and direct passes
 RESIDENT_BYTES = 6291456  # LMC_CW_VMEM_BYTES of path C
 PATH_B_STEPS = 4        # path B's chain iterations (H2MC: ~15-21 s each)
+# path F's chain iterations and bootstrap samples: its brute force tests
+# every ray in fixed blocks, dead ones too (2.9-3.8x the live rays)
+PATH_F_STEPS = 4
+PATH_F_INIT_SAMPLES = 65536
 OPS_PER_TEST = 40       # f32 operations of one ray-triangle test
 OPS_PER_SLAB = 25       # f32 operations of one ray-AABB slab test
 OPS_PER_MT = 61         # f32 operations of one Moller-Trumbore test
@@ -636,13 +664,14 @@ def check_subpath_generation(small_xml):
 def count_light_coords():
     """Count, from now on, the generated lanes that carry light-coordinate
     parameters (trace._shift_light_coords sees every generation's lc_ok).
-    Returns the counter: a dict whose 'lanes' is a device tensor."""
+    Returns the counter: a dict whose 'lanes' is a device tensor, summed
+    in place (so a captured step adds at every replay)."""
     from langevin_mcmc_tpu_torch.path import trace
     shift = trace._shift_light_coords
-    counter = {'lanes': 0}
+    counter = {'lanes': torch.zeros((), dtype=torch.int64, device='cuda')}
 
     def counting(opts, cam_bsdf_rnd, lc_ok, lc_param):
-        counter['lanes'] = counter['lanes'] + lc_ok.any(1).sum()
+        counter['lanes'].add_(lc_ok.any(1).sum())
         return shift(opts, cam_bsdf_rnd, lc_ok, lc_param)
     trace._shift_light_coords = counting
     return counter
@@ -718,9 +747,11 @@ def motion_queries(scene):
 
 
 class BruteForceCounter:
-    """Counts the brute-force queries made while it is active (occluded
-    queries call intersect_bruteforce too): queries, rays, live rays and
-    host-clock seconds, each query ending in a device sync."""
+    """Counts the brute-force queries issued from the host while it is
+    active (occluded queries call intersect_bruteforce too): queries and
+    rays; outside a CUDA graph capture also live rays and host-clock
+    seconds, each such query ending in a device sync. A captured step's
+    queries are issued once, at its capture, and rerun by every replay."""
 
     def __init__(self):
         self.calls = self.rays = self.live = 0
@@ -731,12 +762,14 @@ class BruteForceCounter:
         self.orig = orig = intersect.intersect_bruteforce
 
         def counting(scene, org, d, time_, min_t, max_t):
+            self.calls += 1
+            self.rays += org.shape[0]
+            if torch.cuda.is_current_stream_capturing():
+                return orig(scene, org, d, time_, min_t, max_t)
             t0 = time.time()
             out = orig(scene, org, d, time_, min_t, max_t)
             torch.cuda.synchronize()
             self.seconds += time.time() - t0
-            self.calls += 1
-            self.rays += org.shape[0]
             self.live += int((max_t >= min_t).sum())
             return out
         intersect.intersect_bruteforce = counting
@@ -819,6 +852,7 @@ def chain_rate(label, res):
     """Print a render's phase times, proposals/s and acceptance rate;
     returns the chain loop's proposals/s."""
     tm = res['timings']
+    graph_line(label, tm)
     proposals = tm['steps'] * res['opts'].num_chains
     props = proposals / tm['loop_s']
     log(f'{label}: b = {res["b"]:.6g}; direct {tm["direct_s"]:.2f} s, '
@@ -827,6 +861,37 @@ def chain_rate(label, res):
         f'ms each), {props:.1f} proposals/s, acceptance '
         f'{tm["accepts"] / proposals:.4f} ({tm["accepts"]} of {proposals})')
     return props
+
+
+def graph_line(label, tm):
+    """A render's captured chain loop (render_mlt's timings): graphs a
+    step, the eager calls between them (named), their nodes, the capture
+    and instantiate seconds, n_done against the iterations scheduled,
+    which must be equal, and eager against captured ms an iteration in
+    this render: the warm-up iterations (eager) against the replays (the
+    chain loop less the warm-ups, the capturing iterations and the cache
+    merges, over the iterations left)."""
+    scheduled = tm.get('calls', tm['steps'] // tm['n_inner']) * tm['n_inner']
+    replays = tm['steps'] - 2 * tm.get('warmups', 0)
+    if tm.get('warmups') and replays > 0:
+        eager = tm['warmup_s'] / tm['warmups'] * 1e3
+        captured = (tm['loop_s'] - tm['warmup_s'] - tm['capture_pass_s']
+                    - tm.get('merge_s', 0.0)) / replays * 1e3
+        log(f'{label}: eager {eager:.1f} ms an iteration (the warm-up), '
+            f'captured {captured:.1f} ms an iteration ({replays} replays), '
+            f'eager / captured {eager / captured:.3f}; the capturing '
+            f'iteration {tm["capture_pass_s"]:.2f} s')
+    log(f'{label}: chain loop from CUDA graphs: {tm.get("graphs", 0)} '
+        f'graph(s) a step, {tm.get("eager_calls", 0)} eager call(s) between '
+        f'them {tm.get("eager_fns", [])}, {tm.get("graph_nodes", 0)} nodes; '
+        f'capture {tm.get("capture_s", 0.0):.2f} s, instantiate '
+        f'{tm.get("instantiate_s", 0.0):.2f} s; n_done {tm["n_done"]} of '
+        f'{scheduled} iterations scheduled (calls of {tm["n_inner"]})')
+    if tm.get('graphs', 0) < 1:
+        raise AssertionError(f'{label}: the chain loop ran no CUDA graph')
+    if tm['n_done'] != scheduled or tm['steps'] != scheduled:
+        raise AssertionError(f'{label}: n_done {tm["n_done"]}, steps '
+                             f'{tm["steps"]}, scheduled {scheduled}')
 
 
 def large_step_line(label, res, lc_counter):
@@ -872,58 +937,168 @@ def prefill_cache(banked, opts):
     return dataclasses.replace(banked, cache=cache)
 
 
-def cache_phase(xml, steps=4):
-    """Path E's configuration with the cache rows pre-filled from the seed
-    states (paths included), so cache-seeded large steps run from the first
-    iteration (organic fills need thousands of steps). Fails unless some
-    large-step lanes took the cache branch and the film is finite and
-    non-negative."""
+def sync_free(fn):
+    """fn() under torch.cuda.set_sync_debug_mode('error'): any host sync
+    raises (the eager calls a captured step makes between its graphs,
+    ops/graphs.eager_call, run with the mode off)."""
+    from langevin_mcmc_tpu_torch.mcmc import gaussian
+    orig = gaussian.eager_call
+
+    def off(f, *a):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return orig(f, *a)
+        finally:
+            torch.cuda.set_sync_debug_mode('error')
+    gaussian.eager_call = off
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        gaussian.eager_call = orig
+
+
+def timed(fn):
+    """(fn(), host seconds) between two device syncs."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def unconditional_cost(scene, opts, banked):
+    """CUDA-event ms of one replay of a captured path_grad (bake included)
+    of every lane (the proposal side) and of cur_grad_fraction of the
+    lanes (the current side): the gradients a MALA step now computes on
+    every call where the JAX package's lax.cond skips them when no lane
+    needs them. Returns (all lanes ms, Kc lanes ms, Kc)."""
+    from langevin_mcmc_tpu_torch.ops.graphs import StepGraphs
+    from langevin_mcmc_tpu_torch.path import replay
+    from langevin_mcmc_tpu_torch.utils.tree import tree_take
+    rec = banked.state.rec
+    C = opts.num_chains
+    Kc = min(C, max(int(C * opts.cur_grad_fraction), 8))
+    sub = tree_take(rec, torch.arange(Kc, device='cuda'))
+
+    def replay_ms(r):
+        fn = lambda: replay.path_grad(scene, opts, r,
+                                      bake=replay.bake_frozen(scene, opts, r))
+        g = StepGraphs('cuda')
+        g.run_eager(fn)
+        g.capture(fn)
+        return cuda_ms(g.replay, 3)
+    with torch.no_grad():
+        return replay_ms(rec), replay_ms(sub), Kc
+
+
+def graph_parity(label, xml, prefill=False, steps=8):
+    """From one bootstrapped state and one generator state at full width:
+    `steps` iterations of the eager step (make_mlt_step, under
+    sync_free: no host sync), then the same through one call of
+    make_mlt_multi_step (the warm-up, the capture, replays). The chain
+    state must be equal bit for bit and step.counts equal; the film is
+    held to rtol 1e-5 (index_add_ splats with atomics). Then `steps` more
+    eager iterations and one more call of the multi-step (all replays)
+    from where each stood, timed in turn: eager and captured ms an
+    iteration side by side. prefill: path E's configuration with the
+    cache rows pre-filled from the seed states (paths included), so the
+    cache-seeded large step and the cache phase run from the first
+    iteration; it must take the cache branch, and the gradients that now
+    run unconditionally are timed (unconditional_cost)."""
     from langevin_mcmc_tpu_torch.scene.parse import parse_scene
     from langevin_mcmc_tpu_torch.integrators import mlt
     from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
+    from langevin_mcmc_tpu_torch.utils.tree import tree_leaves
     scene, opts, _ = parse_scene(xml, device='cuda')
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device='cuda').manual_seed(2)
     C = opts.num_chains
+    shape = (scene.height, scene.width, 3)
     with torch.no_grad():
-        t0 = time.time()
-        b, length_dist, banked = mlt.bootstrap(scene, opts, gen, chunk=CHUNK)
-        init = banked
-        banked = prefill_cache(mlt.attach_cache(banked, opts), opts)
-        cache = banked.cache
-        total, rec_bytes = cache_bytes(cache)
-        ready = int((cache.count >= cache.size).sum())
-        torch.cuda.synchronize()
-        log(f'cache phase: bootstrap and pre-fill {time.time() - t0:.2f} s; '
-            f'{ready} of {cache.count.shape[0]} rows full (counts '
-            f'{cache.count.tolist()}); cache {total / 2**20:.1f} MiB, of '
-            f'which stored paths {rec_bytes / 2**20:.1f} MiB '
-            f'({cache.count.shape[0]} x {cache.size} records)')
-        if ready == 0:
-            raise AssertionError('cache phase: the pre-fill filled no row')
-        step = mlt.make_mlt_step(scene, opts, b, opts.large_step_probability,
-                                 length_dist=length_dist)
-        film = torch.zeros((scene.height, scene.width, 3), device='cuda')
+        (b, ld, init), t_boot = timed(lambda: mlt.bootstrap(
+            scene, opts, gen, chunk=CHUNK))
+        banked0 = mlt.attach_cache(init, opts)
+        if prefill:
+            banked0 = prefill_cache(banked0, opts)
+            cache = banked0.cache
+            total, rec_bytes = cache_bytes(cache)
+            ready = int((cache.count >= cache.size).sum())
+            log(f'{label}: {ready} of {cache.count.shape[0]} cache rows full '
+                f'after the pre-fill (counts {cache.count.tolist()}); cache '
+                f'{total / 2**20:.1f} MiB, of which stored paths '
+                f'{rec_bytes / 2**20:.1f} MiB')
+            if ready == 0:
+                raise AssertionError(f'{label}: the pre-fill filled no row')
+        lsp = opts.large_step_probability
+        state0 = gen.get_state()
+        step = mlt.make_mlt_step(scene, opts, b, lsp, length_dist=ld)
+        film_e = torch.zeros(shape, device='cuda')
+
+        def eager(banked, film, n):
+            for _ in range(n):
+                banked = step(gen, banked, film, init)
+            return banked
         cw.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        for _ in range(steps):
-            banked = step(gen, banked, film, init)
-        torch.cuda.synchronize()
-        dt = time.time() - t0
-    counts = {k: int(v) for k, v in step.counts.items()}
-    f = film.cpu().numpy()
-    log(f'cache phase: {steps} iterations, {dt / steps * 1e3:.1f} ms each, '
-        f'{steps * C / dt:.1f} proposals/s; large-step lanes '
-        f'{counts["large"]} (multiplexed {counts["mmlt"]}, cache '
-        f'{counts["cache"]}, cache accepts {counts["cache_accepts"]}); '
-        f'kernel launches {dict(cw.launch_counts)}; peak device memory '
-        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; film mean '
-        f'{f.mean():.6g}, min {f.min():.6g}')
-    if counts['cache'] <= 0:
-        raise AssertionError('cache phase: no lane took the cache branch')
-    if not np.isfinite(f).all() or f.min() < 0.0:
-        raise AssertionError('cache phase: film not finite and non-negative')
+        want, t_e1 = timed(lambda: sync_free(
+            lambda: eager(banked0, film_e, steps)))
+        launches_e = dict(cw.launch_counts)
+        gen.set_state(state0)
+        multi = mlt.make_mlt_multi_step(scene, opts, b, lsp, steps,
+                                        length_dist=ld)
+        cw.reset_launch_counts()
+        (got, film_c, n_done), t_c1 = timed(lambda: multi(
+            gen, banked0, torch.zeros(shape, device='cuda'), init))
+        launches_c = dict(cw.launch_counts)
+        differ = [i for i, (a, c) in enumerate(zip(tree_leaves(want.state),
+                                                   tree_leaves(got.state)))
+                  if not torch.equal(a, c)]
+        counts_e = {k: int(v) for k, v in step.counts.items()}
+        counts_c = {k: int(v) for k, v in multi.step.counts.items()}
+        bit_film = torch.equal(film_e, film_c)
+        film_err = float(((film_e - film_c).abs()
+                          / film_e.abs().clamp(min=1e-30)).max())
+        film_ok = torch.allclose(film_c, film_e, rtol=1e-5, atol=0.0)
+        cache_same = (want.cache is None or all(
+            torch.equal(a, c) for a, c in zip(tree_leaves(want.cache),
+                                              tree_leaves(got.cache))))
+        g = multi.graphs
+        log(f'{label}: {steps} eager iterations (no host sync) and the same '
+            f'{steps} through the multi-step ({len(g.graphs)} graph(s), '
+            f'{len(g.calls)} eager call(s), {sum(g.nodes)} nodes; capture '
+            f'{g.capture_s:.2f} s, instantiate {g.instantiate_s:.2f} s) from '
+            f'one state: n_done {int(n_done)}; chain state '
+            f'{"bit for bit" if not differ else f"leaves {differ} differ"}; '
+            f'cache {"equal" if cache_same else "differs"}; counts '
+            f'{counts_e} vs {counts_c}; film '
+            f'{"bit for bit" if bit_film else f"max rel diff {film_err:.3g}"}'
+            f'; K1/K2 launches {launches_e} vs {launches_c}; bootstrap '
+            f'{t_boot:.2f} s')
+        if differ or counts_e != counts_c or not film_ok \
+                or int(n_done) != steps or launches_e != launches_c:
+            raise AssertionError(f'{label}: captured and eager iterations '
+                                 f'differ')
+        if prefill and counts_e['cache'] <= 0:
+            raise AssertionError(f'{label}: no lane took the cache branch')
+        # timed in turn, each from where it stood
+        _, t_e2 = timed(lambda: eager(want, film_e, steps))
+        (_, _, n2), t_c2 = timed(lambda: multi(gen, got, film_c, init))
+    ms_e, ms_c = t_e2 / steps * 1e3, t_c2 / steps * 1e3
+    log(f'{label}: eager {ms_e:.1f} ms an iteration, captured {ms_c:.1f} ms '
+        f'an iteration (replays; n_done {int(n2)}), eager / captured '
+        f'{ms_e / ms_c:.3f}; {C / ms_e * 1e3:.1f} vs {C / ms_c * 1e3:.1f} '
+        f'proposals/s; first call: eager {t_e1:.2f} s, multi-step (warm-up, '
+        f'capture, replays) {t_c1:.2f} s; peak device memory '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    if int(n2) != steps:
+        raise AssertionError(f'{label}: n_done {int(n2)} of {steps}')
+    if prefill:
+        full, part, Kc = unconditional_cost(scene, opts, want)
+        log(f'{label}: gradients now computed on every call: path_grad of '
+            f'all {C} lanes {full:.1f} ms + of {Kc} lanes {part:.1f} ms = '
+            f'{(full + part) / ms_c:.3f} of a captured iteration')
+    return dict(eager_ms=ms_e, captured_ms=ms_c)
 
 
 def free_port():
@@ -1281,8 +1456,10 @@ def path_h(xml_e, rate_e, spp=6):
     """Path H: path E's configuration rendered by two ranks of the CLI
     (--coordinator, --num-processes 2, --process-id 0/1) that share the
     card (so the collectives take gloo), each with half the chains and
-    half the bootstrap samples; spp 6 gives 72 iterations in calls of 16,
-    with one cache merge after the fourth. Checks every rank's film, the
+    half the bootstrap samples; spp 6 asks for 72 iterations, which the
+    loop runs as the JAX package's does, in whole calls of 16: 80
+    iterations, with one cache merge after the fourth call, each call's
+    chain loop from CUDA graphs. Checks every rank's film, the
     ranks' reduced chain films bit for bit and their b, their final films
     to rtol 1e-5 (each rank's direct pass splats with atomics), the merge
     and K1/K2 on both ranks."""
@@ -1343,8 +1520,11 @@ def path_h(xml_e, rate_e, spp=6):
             f'{tm["merge_bytes"] / 2**20:.1f} MiB gathered; film reduce '
             f'{tm["reduce_s"] * 1e3:.1f} ms; kernel launches '
             f'{js["launches"]}; CLI total {js["seconds"]:.2f} s')
+        graph_line(f'path H rank {r}', tm)
         if tm['merges'] < 1:
             raise AssertionError(f'path H rank {r}: no cache merge ran')
+        if tm['steps'] != -(-spp * 1024 * 768 // js['num_chains'] // 16) * 16:
+            raise AssertionError(f'path H rank {r}: {tm["steps"]} iterations')
         if min(js['launches']['split_closest_hit'],
                js['launches']['split_any_hit']) <= 0:
             raise AssertionError(f'path H rank {r}: K1/K2 not launched')
@@ -1451,6 +1631,9 @@ def main():
                            large_step='cache', light_coords=True)
     xml_f = write_flagship(os.path.join(OUT, 'open_motion'), scene='open',
                            motion=True)
+    xml_f_cut = write_flagship(os.path.join(OUT, 'open_motion_cut'),
+                               num_init_samples=PATH_F_INIT_SAMPLES,
+                               scene='open', motion=True)
     xml_g = write_flagship(os.path.join(OUT, 'flagship_iso'), kernel='iso')
     small_motion = testscenes.write_scene(
         os.path.join(OUT, 'small_motion'), small=True, width=64, height=48,
@@ -1480,6 +1663,8 @@ def main():
 
     res_a, launch_a = render('path A (MALA)', xml, {})
     rate_a = chain_rate('path A (MALA)', res_a)
+    graph_parity('graph phase, path A configuration', xml)
+    torch.cuda.empty_cache()
     res_b, launch_b = render('path B (H2MC)', xml_h2mc,
                              {'LMCMC_ISECT_BACKEND': 'pallas'},
                              num_steps=PATH_B_STEPS)
@@ -1500,7 +1685,8 @@ def main():
     large_step_line('path E', res_e, lc_counter)
     log(f'path E / path A chain-loop proposals/s (same call): '
         f'{rate_e:.1f} / {rate_a:.1f} = {rate_e / rate_a:.3f}')
-    cache_phase(xml_e)
+    graph_parity('graph phase, path E configuration (cache pre-filled)',
+                 xml_e, prefill=True)
     torch.cuda.empty_cache()
     path_h(xml_e, rate_e)
 
@@ -1512,17 +1698,18 @@ def main():
     ms_c, ms_a = motion_queries(scene)
     del scene
     with BruteForceCounter() as bf:
-        res_f, launch_f = render('path F (MALA, moving open scene)', xml_f,
-                                 {}, sky=True)
+        res_f, launch_f = render('path F (MALA, moving open scene)',
+                                 xml_f_cut, {}, sky=True,
+                                 num_steps=PATH_F_STEPS)
     rate_f = chain_rate('path F (MALA, moving open scene)', res_f)
     tm = res_f['timings']
     it_ms = tm['loop_s'] / tm['steps'] * 1e3
-    log(f'path F: {bf.calls} brute-force queries ({bf.rays} rays, {bf.live} '
-        f'live), {bf.seconds:.2f} s host clock = '
-        f'{bf.seconds / res_f["seconds"]:.3f} of the render\'s '
-        f'{res_f["seconds"]:.2f} s; one 65,536-ray query = '
+    log(f'path F: {bf.calls} brute-force queries issued from the host '
+        f'({bf.rays} rays; those outside the capture: {bf.live} live rays, '
+        f'{bf.seconds:.2f} s host clock, synchronised), each captured one '
+        f'rerun by every replay; one 65,536-ray query = '
         f'{ms_c / it_ms:.4f} (closest) / {ms_a / it_ms:.4f} (any) of an '
-        f'iteration ({it_ms:.1f} ms)')
+        f'iteration ({it_ms:.1f} ms, capture included)')
     log(f'path F / path D chain-loop proposals/s (same call): '
         f'{rate_f:.1f} / {rate_d:.1f} = {rate_f / rate_d:.4f}')
     if bf.calls <= 0 or any(launch_f.values()):

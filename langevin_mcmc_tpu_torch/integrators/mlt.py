@@ -17,6 +17,7 @@ plain, multiplexed or cache-seeded large steps).
 """
 
 import dataclasses
+import functools
 import time as _time
 
 import numpy as np
@@ -25,6 +26,7 @@ import torch
 from ..path import trace
 from ..path.records import to_subpath, _slot_tables
 from ..ops.film import splat
+from ..ops.graphs import StepGraphs, commit
 from ..mcmc import chain as chain_mod
 from ..mcmc import cache as cache_mod
 from ..utils.distribution import Distribution1D
@@ -117,14 +119,21 @@ def bank_slots(opts, D):
     return 1 + len(lgt_sel)
 
 
-def collapse_flat(flat, s_tags, weight):
-    """Collapse a flattened technique list [C, NS(, v)] into bank form;
-    weight [C] multiplies every technique.
+@functools.lru_cache(maxsize=None)
+def _bank_sel(D, device):
+    """The flattened techniques' positions that pre-sum into the bank's
+    camera slot (s >= 2) and that keep their own (s == 1), on device, made
+    once a (D, device)."""
+    _, _, s_tags, _ = _slot_tables(D)
+    return (torch.as_tensor(np.nonzero(s_tags >= 2)[0], device=device),
+            torch.as_tensor(np.nonzero(s_tags == 1)[0], device=device))
+
+
+def collapse_flat(flat, D, weight):
+    """Collapse a flattened technique list [C, NS(, v)] of depth D into
+    bank form; weight [C] multiplies every technique.
     Returns (screen [C, NB, 2], contrib [C, NB, 3])."""
-    s_tags = np.asarray(s_tags)
-    dev = weight.device
-    cam_sel = torch.as_tensor(np.nonzero(s_tags >= 2)[0], device=dev)
-    lgt_sel = torch.as_tensor(np.nonzero(s_tags == 1)[0], device=dev)
+    cam_sel, lgt_sel = _bank_sel(D, weight.device)
     ctr = (flat['contrib'] * (flat['ls_score'] > 1e-12)[..., None]
            * weight[:, None, None])
     cam_sum = ctr[:, cam_sel].sum(1)
@@ -155,9 +164,8 @@ def init_full_state(opts, rec, contrib, screen, ls, ss, score_sum, flat,
     base = chain_mod.init_chain_state(rec, contrib, screen, ls, ss,
                                       score_sum, opts)
     if from_large and NB > 1:
-        _, _, s_tags, _ = _slot_tables(D)
         w = normalization / torch.clamp(score_sum, min=1e-12)
-        bank_scr, bank_ctr = collapse_flat(flat, s_tags, w)
+        bank_scr, bank_ctr = collapse_flat(flat, D, w)
     else:
         w = (normalization / torch.clamp(ls, min=1e-12))[:, None]
         bank_scr = torch.zeros((C, NB, 2), device=ls.device)
@@ -197,12 +205,16 @@ def make_mlt_step(scene, opts, normalization, ls_prob, length_dist=None,
     to a small step that iteration.
 
     length_dist: the bootstrap's path-length distribution, needed by the
-    multiplexed and cache-seeded large steps. step.counts sums lane counts
-    of every call on the device (no sync): 'accepts' (accepted proposals,
-    large and small), 'large' (lanes that took a large step) and, for
-    multiplexed and cache-seeded steps, 'mmlt' (the multiplexed uniform
-    proposals among them), 'cache' (the cache-seeded ones) and
-    'cache_accepts'."""
+    multiplexed and cache-seeded large steps. step.counts holds int64
+    device tensors, allocated once and summed in place by every call (so
+    a captured step adds at every replay; no host read): 'accepts'
+    (accepted proposals, large and small), 'large' (lanes that took a
+    large step) and, for multiplexed and cache-seeded steps, 'mmlt' (the
+    multiplexed uniform proposals among them), 'cache' (the cache-seeded
+    ones) and 'cache_accepts'.
+
+    The step is static-shaped and reads nothing back to the host, as the
+    JAX package's jitted step: make_mlt_multi_step captures it."""
     C = opts.num_chains
     D = opts.max_depth
     Dm = 2 * D
@@ -212,7 +224,6 @@ def make_mlt_step(scene, opts, normalization, ls_prob, length_dist=None,
         raise ValueError('multiplexed and cache-seeded large steps need the '
                          'bootstrap length distribution')
     K = min(C, max(int(C * min(ls_prob, 1.0) * 1.3) + 1, 8))
-    _, _, s_tags_static, _ = _slot_tables(D)
     dev = scene.device
     small = small_kind(opts)
     lane_shard = None
@@ -222,10 +233,14 @@ def make_mlt_step(scene, opts, normalization, ls_prob, length_dist=None,
                              f'film shards')
         lane_shard = torch.arange(C, device=dev) // (C // film_shards)
 
-    counts = {}
+    keys = ['large', 'accepts'] + (['mmlt', 'cache'] if kind != 'plain'
+                                   else []) \
+        + (['cache_accepts'] if kind == 'cache' else [])
+    counts = {k: torch.zeros((), dtype=torch.int64, device=dev)
+              for k in keys}
 
     def count(key, mask):
-        counts[key] = counts.get(key, 0) + mask.sum()
+        counts[key].add_(mask.sum())
 
     def run_large(gen, state_k, cache):
         rand = lambda *s: torch.rand(s, generator=gen, device=dev)
@@ -309,11 +324,10 @@ def make_mlt_step(scene, opts, normalization, ls_prob, length_dist=None,
             lf = prop_lk['all_flat']
             inv_ss = 1.0 / torch.clamp(prop_lk['score_sum'], min=1e-12)
             lscr_k, lctr_k = collapse_flat(
-                lf, s_tags_static,
+                lf, D,
                 torch.where(a_lk > 0.0, a_lk * normalization * inv_ss,
                             torch.zeros_like(a_lk)))
-            bscr_k, bctr_k = collapse_flat(lf, s_tags_static,
-                                           normalization * inv_ss)
+            bscr_k, bctr_k = collapse_flat(lf, D, normalization * inv_ss)
         else:
             # multiplexed / cache-seeded: the one technique of each lane
             inv_ls = normalization / torch.clamp(prop_lk['ls'], min=1e-12)
@@ -483,20 +497,130 @@ def _mala_commit(state, prop_adv, cache, acc_large, acc_small_adv, ran_adv,
         cached_rec=cached_rec), cache
 
 
+def make_mlt_multi_step(scene, opts, normalization, ls_prob, n_inner,
+                        length_dist=None, film_shards=None, pool=None):
+    """n_inner chain iterations a call (the JAX package's fused
+    multi-step): multi(generator, banked, film, init_banked) -> (banked,
+    film, n_done). n_done is an int32 device tensor: the iterations of the
+    call after which the summed ss_score of the chain state was finite.
+    It depends on each step's output, so it proves the iterations ran,
+    and a shortfall means a non-finite chain state.
+
+    On the card, every iteration after the first of the first call is a
+    CUDA graph replay. The first iteration runs eagerly on a side stream
+    (the warm-up; it counts), the second is captured (ops/graphs
+    StepGraphs, in the memory pool `pool`: one graph_pool_handle may be
+    shared by steps that never run interleaved) and runs as captured. The
+    graphs read and write static buffers, copies of the first call's
+    banked, film and init_banked, and draw from the first call's
+    generator (every call must pass it). The returned banked and film ARE
+    those buffers: the next call overwrites them, as it would a donated
+    JAX buffer. Pass them back, or other values, which are copied in. A
+    capture that fails raises; nothing falls back to eager steps.
+
+    On the CPU multi runs n_inner eager steps.
+
+    multi.step is the eager step (make_mlt_step; its counts count every
+    iteration of multi); multi.graphs the StepGraphs once captured;
+    multi.warmup_s and multi.capture_pass_s the host seconds of the
+    warm-up iteration and of the iteration that captures (each between
+    two device syncs, once a multi-step)."""
+    step = make_mlt_step(scene, opts, normalization, ls_prob,
+                         length_dist=length_dist, film_shards=film_shards)
+    return _MultiStep(step, scene.device, n_inner, pool)
+
+
+class _MultiStep:
+    """make_mlt_multi_step's multi (see there)."""
+
+    def __init__(self, step, device, n_inner, pool):
+        self.step, self.graphs = step, None
+        self.warmup_s = self.capture_pass_s = 0.0
+        self._device, self._n_inner, self._pool = device, n_inner, pool
+        self._n_done = torch.zeros((), dtype=torch.int32, device=device)
+        self._static = None
+
+    def _body(self, gen, banked, film, init_banked):
+        banked = self.step(gen, banked, film, init_banked)
+        self._n_done.add_(torch.isfinite(banked.state.ss_score.sum())
+                          .to(torch.int32))
+        return banked
+
+    def __call__(self, gen, banked, film, init_banked):
+        self._n_done.zero_()
+        if self._device.type != 'cuda':
+            for _ in range(self._n_inner):
+                banked = self._body(gen, banked, film, init_banked)
+            return banked, film, self._n_done.clone()
+        it = 0
+        st = self._static
+        if st is None:
+            st = self._static = dict(
+                banked=tree_map(torch.clone, banked), film=film.clone(),
+                init=tree_map(torch.clone, init_banked), init_src=init_banked,
+                gen=gen, graphs=StepGraphs(self._device, [gen], self._pool))
+            it = 1
+        else:
+            if gen is not st['gen']:
+                raise ValueError('a captured multi-step draws from the '
+                                 'generator of its first call')
+            if banked is not st['banked']:
+                commit(st['banked'], banked)
+            if film is not st['film']:
+                st['film'].copy_(film)
+            if init_banked is not st['init_src']:
+                commit(st['init'], init_banked)
+                st['init_src'] = init_banked
+        sb, sf, si, graphs = st['banked'], st['film'], st['init'], \
+            st['graphs']
+        one = lambda: commit(sb, self._body(gen, sb, sf, si))
+        if it:
+            self.warmup_s = _synced(lambda: graphs.run_eager(one))
+        for _ in range(it, self._n_inner):
+            if self.graphs is None:
+                self.capture_pass_s = _synced(lambda: graphs.capture(one))
+                self.graphs = graphs
+            else:
+                graphs.replay()
+        return sb, sf, self._n_done.clone()
+
+
+def _synced(fn):
+    """Host seconds of fn() between two device syncs."""
+    torch.cuda.synchronize()
+    t0 = _time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return _time.perf_counter() - t0
+
+
 def render_mlt(scene, opts, generator, num_steps=None, progress=False,
-               chunk=4096, timings=None, intermediate_path=None):
+               chunk=4096, timings=None, intermediate_path=None, n_inner=16):
     """Full MCMC render. Returns (film [H, W, 3], normalization b).
 
-    num_steps: chain iterations (default: opts.spp * pixels / chains).
+    num_steps: chain iterations (default: opts.spp * pixels / chains),
+    run in calls of n_inner iterations (make_mlt_multi_step) on the JAX
+    package's schedule: n_inner = min(n_inner, report interval, num_steps)
+    (at least 1), num_steps rounded up to a multiple of it, the
+    large-step probability switched after int(calls * ls_ratio) calls.
     timings: optional dict, filled with the seconds of each phase
     (bootstrap, direct, chain loop, snapshot writes; each ends in a device
-    sync), the number of chain iterations, the accepted proposals and the
-    large-step lane counts of the steps (make_mlt_step's step.counts) and,
-    with a cache, the rows that filled ('cache_rows_ready').
+    sync), 'steps' (the iterations run), 'n_done' (the iterations the
+    multi-steps counted on the device), 'n_inner', the accepted proposals
+    and the large-step lane counts of the steps (make_mlt_step's
+    step.counts) and, with a cache, the rows that filled
+    ('cache_rows_ready'); on the card also the captured graphs a step
+    ('graphs'), the eager calls between them ('eager_calls'), their nodes
+    ('graph_nodes'), the capture and instantiate seconds of every step
+    ('capture_s', 'instantiate_s') and the seconds of the warm-up
+    iterations ('warmup_s', 'warmups' of them) and of the iterations that
+    captured ('capture_pass_s'), all inside loop_s; the other iterations
+    are replays.
     intermediate_path: base path of the snapshots {path}.exr and
     {path}.png, written every report_interval_spp spp of the chain loop
-    (when opts.report_interval_spp > 0) until the last iteration; their
-    writes are timed apart from the chain loop (timings['report_s'])."""
+    (when opts.report_interval_spp > 0) at call boundaries until the last
+    call; their writes are timed apart from the chain loop
+    (timings['report_s'])."""
     dev = scene.device
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == 'cuda' \
         else (lambda: None)
@@ -524,26 +648,33 @@ def render_mlt(scene, opts, generator, num_steps=None, progress=False,
     ls_prob1 = opts.large_step_probability
     scale = 1.0 if opts.h2mc else opts.large_step_prob_scale
     ls_prob2 = min(ls_prob1 * scale, 1.0)
-    step1 = make_mlt_step(scene, opts, normalization, ls_prob1,
-                          length_dist=length_dist)
-    step2 = step1 if ls_prob2 == ls_prob1 else \
-        make_mlt_step(scene, opts, normalization, ls_prob2,
-                      length_dist=length_dist)
-    phase_switch = int(num_steps * opts.ls_ratio)
     report_every = 0
     if intermediate_path is not None and opts.report_interval_spp > 0:
         report_every = max(int(opts.report_interval_spp * npix / C), 1)
+        n_inner = min(n_inner, report_every)
+    n_inner = max(min(n_inner, num_steps), 1)
+    num_steps = -(-num_steps // n_inner) * n_inner
+    n_outer = num_steps // n_inner
+    pool = torch.cuda.graph_pool_handle() if dev.type == 'cuda' else None
+    step1 = make_mlt_multi_step(scene, opts, normalization, ls_prob1,
+                                n_inner, length_dist=length_dist, pool=pool)
+    step2 = step1 if ls_prob2 == ls_prob1 else \
+        make_mlt_multi_step(scene, opts, normalization, ls_prob2, n_inner,
+                            length_dist=length_dist, pool=pool)
+    phase_switch = int(n_outer * opts.ls_ratio)
     film = torch.zeros((scene.height, scene.width, 3), device=dev)
     init_banked = banked
     banked = attach_cache(banked, opts)
+    n_done = torch.zeros((), dtype=torch.int64, device=dev)
     report_s = 0.0
     t0 = _time.time()
-    for i in range(num_steps):
+    for i in range(n_outer):
         step = step1 if i <= phase_switch else step2
-        banked = step(generator, banked, film, init_banked)
-        if progress and i % max(num_steps // 10, 1) == 0:
-            print(f'mlt step {i}/{num_steps}', flush=True)
-        done = i + 1
+        banked, film, nd = step(generator, banked, film, init_banked)
+        n_done += nd
+        if progress and i % max(n_outer // 10, 1) == 0:
+            print(f'mlt step {i * n_inner}/{num_steps}', flush=True)
+        done = (i + 1) * n_inner
         if report_every and done % report_every == 0 and done < num_steps:
             sync()
             t_r = _time.time()
@@ -554,12 +685,36 @@ def render_mlt(scene, opts, generator, num_steps=None, progress=False,
     sync()
     timings['loop_s'] = _time.time() - t0 - report_s
     timings['report_s'] = report_s
-    timings['steps'] = num_steps
+    timings.update(steps=num_steps, n_done=int(n_done), n_inner=n_inner)
     for st in {step1, step2}:
-        for k, v in st.counts.items():
+        for k, v in st.step.counts.items():
             timings[k] = timings.get(k, 0) + int(v)
+    timings.update(graph_stats([step1, step2]))
     if banked.cache is not None:
         timings['cache_rows_ready'] = int(
             (banked.cache.count >= banked.cache.size).sum())
     effective_spp = num_steps * C / npix
     return direct + film / effective_spp, b
+
+
+def graph_stats(multis):
+    """The captured graphs of multi-steps (make_mlt_multi_step) as
+    render_mlt's timings report them: graphs, eager calls between them
+    (and their functions' names) and nodes of one step (the first
+    captured); the capture and instantiate seconds, the warm-ups and
+    their seconds and the seconds of the capturing iterations of all of
+    them. Empty when none was captured."""
+    ms = list({id(m): m for m in multis}.values())
+    caught = [m.graphs for m in ms if m.graphs is not None]
+    if not caught:
+        return {}
+    g = caught[0]
+    return dict(warmups=sum(m.warmup_s > 0 for m in ms),
+                warmup_s=sum(m.warmup_s for m in ms),
+                capture_pass_s=sum(m.capture_pass_s for m in ms),
+                graphs=len(g.graphs), eager_calls=len(g.calls),
+                eager_fns=[f'{fn.__module__}.{fn.__qualname__}'
+                           for fn, _, _ in g.calls],
+                graph_nodes=sum(g.nodes),
+                capture_s=sum(x.capture_s for x in caught),
+                instantiate_s=sum(x.instantiate_s for x in caught))

@@ -89,17 +89,22 @@ def push_batch(cache: GlobalCache, dims, pss, v1, v2, weight, mask, opts,
     rank[order] = pos - seg_start
     slot = cache.count[d].long() + rank
     ok = ok & (slot < size)
-    flat_idx = (d * size + slot)[ok]
+    # every lane scatters: the lanes that push none write one spare row
+    # past the end (static shapes, no host read)
+    flat_idx = torch.where(ok, d * size + slot,
+                           torch.full_like(slot, ndim * size))
 
     def scat(buf, val):
-        flat = buf.reshape((ndim * size,) + buf.shape[2:]).clone()
-        flat[flat_idx] = val[ok].to(buf.dtype)
-        return flat.reshape(buf.shape)
+        flat = torch.cat([buf.reshape((ndim * size,) + buf.shape[2:]),
+                          buf.new_zeros((1,) + buf.shape[2:])])
+        flat[flat_idx] = val.to(buf.dtype)
+        return flat[:-1].reshape(buf.shape)
 
     zero_i = torch.zeros(C, dtype=torch.int32, device=dev)
     add = torch.zeros(ndim, dtype=torch.int32, device=dev).index_add_(
-        0, d[ok], torch.ones_like(d[ok], dtype=torch.int32))
-    add_w = torch.zeros(ndim, device=dev).index_add_(0, d[ok], weight[ok])
+        0, d, ok.to(torch.int32))
+    add_w = torch.zeros(ndim, device=dev).index_add_(
+        0, d, torch.where(ok, weight, torch.zeros_like(weight)))
     new_rec = cache.rec
     if cache.rec is not None and rec is not None:
         new_rec = tree_map(scat, cache.rec, rec)

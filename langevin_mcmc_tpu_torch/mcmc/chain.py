@@ -14,7 +14,7 @@ import torch
 
 from ..path import trace, replay
 from ..path.records import (PathRecord, to_subpath, get_path_pss, pss_dim,
-                            empty_record)
+                            slot_tables_on)
 from ..utils.tree import tree_map, tree_take, tree_where
 from . import gaussian as G
 from . import cache as cache_mod
@@ -95,7 +95,7 @@ def large_step(scene, opts, state: ChainState, tape, u_pick):
     min_depth = max(opts.min_depth, 3)
     rec, con, _, _ = trace.generate_path_bidir(
         scene, opts, tape, min_depth=min_depth, max_depth=opts.max_depth)
-    flat, s_tags, t_tags = con.flatten()
+    flat, _, _ = con.flatten()
     ls = flat['ls_score']                      # [C, NS]
     score_sum = torch.sum(ls, -1)
     cdf = torch.cumsum(ls, -1)
@@ -104,9 +104,9 @@ def large_step(scene, opts, state: ChainState, tape, u_pick):
     pick = torch.clamp(pick, 0, ls.shape[-1] - 1)
     lanes = torch.arange(C, device=ls.device)
     take = lambda a: a[lanes, pick]
-    dev = ls.device
-    s_sel = torch.as_tensor(s_tags, device=dev)[pick]
-    t_sel = torch.as_tensor(t_tags, device=dev)[pick]
+    _, _, s_tags, t_tags = slot_tables_on(opts.max_depth, ls.device)
+    s_sel = s_tags[pick]
+    t_sel = t_tags[pick]
     prop_ls = take(ls)
     rec_tagged = to_subpath(rec, s_sel, t_sel)
 
@@ -203,54 +203,34 @@ def large_step_cache(scene, opts, state: ChainState, length_dist, cache,
     tape: Tape [C] of the uniform branch; u_len, u_split, u_pick, u_samp:
     [C] uniforms (length, split, branch pick, cache draw); offset: [C, Dm]
     PSS jitter (N(0, cache_sig^2)); noise: the perturb jitters of the
-    replay (perturb_noise). The JAX package evaluates both branches on
-    every lane and selects; here each lane runs only its own branch, on
-    the gathered lanes, with the same per-lane results.
+    replay (perturb_noise). Both branches run on every lane and each lane
+    takes its own, as in the JAX package (no lane's result depends on the
+    other branch).
     Returns (proposal dict with 'use_cache', a)."""
-    C = state.ls_score.shape[0]
-    D = opts.max_depth
-    Dm = 2 * D
-    dev = state.ls_score.device
+    Dm = 2 * opts.max_depth
     length = _sample_length(length_dist, u_len)
     prop_dim = 2 * length
     prop_avail = _row_ready(opts, cache, prop_dim)
     use_cache = prop_avail & (u_pick <= opts.cache_prob)
 
-    # each lane runs its own branch: gather, run, scatter back
-    prop = dict(rec=empty_record(C, D, dev),
-                contrib=torch.zeros((C, 3), device=dev),
-                screen=torch.zeros((C, 2), device=dev),
-                ls=torch.zeros(C, device=dev), ss=torch.zeros(C, device=dev),
-                ok=torch.zeros(C, dtype=torch.bool, device=dev))
-
-    def put(prop, idx, part):
-        def scat(full, p):
-            full = full.clone()
-            full[idx] = p.to(full.dtype)
-            return full
-        return tree_map(scat, prop, part)
-
     # uniform multiplexed branch
-    uni = torch.nonzero(~use_cache)[:, 0]
-    if uni.numel():
-        s, t = _sample_st_split(opts, u_split[uni], length[uni])
-        r, res = trace.generate_subpath(
-            scene, opts, trace.Tape(tape.u[uni], D), s, t)
-        prop = put(prop, uni, dict(rec=r, contrib=res['contrib'],
-                                   screen=res['screen'], ls=res['ls'],
-                                   ss=res['ss'], ok=res['valid']))
+    s, t = _sample_st_split(opts, u_split, length)
+    rec_u, res_u = trace.generate_subpath(scene, opts, tape, s, t)
     # cache branch: a stored path, replayed with a wrapped Gaussian jitter
-    cch = torch.nonzero(use_cache)[:, 0]
-    if cch.numel():
-        _, _, _, rec_stored = cache_mod.sample_cache(cache, prop_dim[cch],
-                                                     u_samp[cch])
-        r, res = replay.replay_path(
-            scene, opts, rec_stored, offset[cch],
-            {k: v[cch] for k, v in noise.items()}, mode='perturb')
-        prop = put(prop, cch, dict(
-            rec=r, contrib=res['contrib'], screen=res['screen_pos'],
-            ls=res['ls_score'], ss=res['ss_score'],
-            ok=res['valid'] & (res['ss_score'] > 0.0)))
+    _, _, _, rec_stored = cache_mod.sample_cache(cache, prop_dim, u_samp)
+    rec_c, res_c = replay.replay_path(scene, opts, rec_stored, offset, noise,
+                                      mode='perturb')
+
+    def sel(c_val, u_val):
+        m = use_cache.reshape(use_cache.shape + (1,) * (c_val.ndim - 1))
+        return torch.where(m, c_val, u_val)
+    prop = dict(rec=tree_where(use_cache, rec_c, rec_u),
+                contrib=sel(res_c['contrib'], res_u['contrib']),
+                screen=sel(res_c['screen_pos'], res_u['screen']),
+                ls=sel(res_c['ls_score'], res_u['ls']),
+                ss=sel(res_c['ss_score'], res_u['ss']),
+                ok=torch.where(use_cache, res_c['valid']
+                               & (res_c['ss_score'] > 0.0), res_u['valid']))
 
     # MIS acceptance
     cur_len = state.rec.cam_depth + state.rec.lgt_depth - 1
@@ -263,15 +243,10 @@ def large_step_cache(scene, opts, state: ChainState, length_dist, cache,
                                 min=1.0) * cur_jac
 
     def kde(avail, dim, r):
-        """eval_pdf_cache on the lanes whose row is full, 0 elsewhere."""
-        out = torch.zeros(C, device=dev)
-        sel = torch.nonzero(avail)[:, 0]
-        if sel.numel():
-            r = tree_take(r, sel)
-            out[sel] = cache_mod.eval_pdf_cache(
-                cache, dim[sel], get_path_pss(r, Dm), r.cam_depth,
-                r.lgt_depth, opts)
-        return out
+        """eval_pdf_cache on every lane, 0 where the row is not full."""
+        pdf = cache_mod.eval_pdf_cache(cache, dim, get_path_pss(r, Dm),
+                                       r.cam_depth, r.lgt_depth, opts)
+        return torch.where(avail, pdf, torch.zeros_like(pdf))
 
     cp = opts.cache_prob
     prop_pdf = torch.where(prop_avail, (1 - cp) * prop_uni
@@ -328,11 +303,10 @@ def _perturb_and_grad(scene, opts, rec, offset, noise, grad_mask,
                       want_hess=False):
     """Perturb replay (collecting the frozen-path bake on a static scene) +
     the gradient at the proposal (and its dense Hessian when want_hess:
-    H2MC), skipped when no lane consumes it.
+    H2MC), zeros when no lane consumes it (grad_mask [C] bool), as the JAX
+    package's lax.cond gives: computed on every call and selected on the
+    device, with no host read.
     Returns (new_rec, res, grad [C, Dm], hess [C, Dm, Dm] or None)."""
-    C = rec.time.shape[0]
-    Dm = 2 * rec.max_depth
-    dev = rec.time.device
     if scene.has_motion:
         new_rec, res = replay.replay_path(scene, opts, rec, offset, noise,
                                           mode='perturb')
@@ -341,16 +315,14 @@ def _perturb_and_grad(scene, opts, rec, offset, noise, grad_mask,
         new_rec, res, bake = replay.replay_path(
             scene, opts, rec, offset, noise, mode='perturb',
             collect_bake=True)
-    if bool(grad_mask.any()):
-        if want_hess:
-            grad, hess = replay.path_grad_hessian(scene, opts, new_rec,
-                                                  bake=bake)
-        else:
-            grad, hess = replay.path_grad(scene, opts, new_rec,
-                                          bake=bake), None
+    if want_hess:
+        grad, hess = replay.path_grad_hessian(scene, opts, new_rec, bake=bake)
     else:
-        grad = torch.zeros((C, Dm), device=dev)
-        hess = torch.zeros((C, Dm, Dm), device=dev) if want_hess else None
+        grad, hess = replay.path_grad(scene, opts, new_rec, bake=bake), None
+    used = grad_mask.any()
+    grad = torch.where(used, grad, torch.zeros_like(grad))
+    if hess is not None:
+        hess = torch.where(used, hess, torch.zeros_like(hess))
     return new_rec, res, grad, hess
 
 
@@ -416,9 +388,9 @@ def small_step_mala(scene, opts, state: ChainState, z, noise, cache,
 
     def sparse_cur_grad():
         Kc = min(C, max(int(C * opts.cur_grad_fraction), 8))
+        # with no lane in need this gives zeros and no lane covered, what
+        # the JAX package's lax.cond gives
         zeros = torch.zeros((C, Dm), device=dev)
-        if not bool(cur_need.any()):
-            return zeros, torch.zeros_like(cur_need)
         if Kc >= C:
             grad = grad_with_bake(state.rec)
             return torch.where(cur_need[:, None], grad, zeros), cur_need
@@ -426,8 +398,7 @@ def small_step_mala(scene, opts, state: ChainState, z, noise, cache,
         sel = order[:Kc]
         grad = zeros.clone()
         grad[sel] = grad_with_bake(tree_take(state.rec, sel))
-        covered = torch.zeros_like(cur_need)
-        covered[sel] = True
+        covered = torch.zeros_like(cur_need).index_fill_(0, sel, True)
         covered &= cur_need
         return torch.where(covered[:, None], grad, zeros), covered
 
@@ -478,14 +449,14 @@ def small_step_mala(scene, opts, state: ChainState, z, noise, cache,
     gauss_grad_cur = G.mala_gaussian(v1_cur, v2_cur, state.stepsize,
                                      opts.mala_std_dev, M_cur,
                                      state.ss_score, opts)
+    # the cache queries run on every call and are selected on the device
+    # by whether any lane needs them (the JAX package's lax.conds)
     need = cache_lane & ~state.gaussian_init
-    if bool(need.any()):
-        gauss_cache_cur, cv1, cv2, queried1, last_pss1 = cache_gauss(
-            pss_cur, state.ss_score, state.v1, state.v2, state.queried,
-            state.last_pss, need)
-    else:
-        gauss_cache_cur, cv1, cv2, queried1, last_pss1 = (
-            iso, state.v1, state.v2, state.queried, state.last_pss)
+    gauss_cache_cur, cv1, cv2, queried1, last_pss1 = tree_where(
+        need.any(),
+        cache_gauss(pss_cur, state.ss_score, state.v1, state.v2,
+                    state.queried, state.last_pss, need),
+        (iso, state.v1, state.v2, state.queried, state.last_pss))
     upd = need[:, None]
     v1_now = torch.where(upd, cv1, state.v1)
     v2_now = torch.where(upd, cv2, state.v2)
@@ -513,13 +484,11 @@ def small_step_mala(scene, opts, state: ChainState, z, noise, cache,
                                       opts.mala_std_dev, M_prop,
                                       res['ss_score'], opts)
     need = cache_lane & ok
-    if bool(cache_lane.any()):
-        gauss_cache_prop, pv1, pv2, queried2, last_pss2 = cache_gauss(
-            pss_prop, res['ss_score'], v1_now, v2_now, queried1, last_pss1,
-            need)
-    else:
-        gauss_cache_prop, pv1, pv2, queried2, last_pss2 = (
-            iso, v1_now, v2_now, queried1, last_pss1)
+    gauss_cache_prop, pv1, pv2, queried2, last_pss2 = tree_where(
+        cache_lane.any(),
+        cache_gauss(pss_prop, res['ss_score'], v1_now, v2_now, queried1,
+                    last_pss1, need),
+        (iso, v1_now, v2_now, queried1, last_pss1))
     upd = need[:, None]
     v1_now = torch.where(upd, pv1, v1_now)
     v2_now = torch.where(upd, pv2, v2_now)
@@ -601,26 +570,26 @@ def small_step_h2mc(scene, opts, state: ChainState, z, noise, use_iso=None,
         need &= ~skip_lanes
     Kc = min(C, max(int(C * opts.cur_grad_fraction), 8))
     iso = G.isotropic_gaussian(C, Dm, sigma, dev, dense=True)
-    covered = torch.zeros_like(need)
-    gauss_cur_new = iso
-    if bool(need.any()):
-        if Kc >= C:
-            sel = torch.arange(C, device=dev)
-        else:
-            sel = torch.argsort(torch.where(need, 0, 1), stable=True)[:Kc]
-        rec_sel = tree_take(state.rec, sel)
-        grad, hess = replay.path_grad_hessian(
-            scene, opts, rec_sel, bake=_bake(scene, opts, rec_sel))
-        gauss_sel = h2mc_gauss(grad, hess, state.ss_score[sel])
+    # computed on every call and selected on the device by whether any
+    # lane needs it (the JAX package's lax.cond)
+    if Kc >= C:
+        sel = torch.arange(C, device=dev)
+    else:
+        sel = torch.argsort(torch.where(need, 0, 1), stable=True)[:Kc]
+    rec_sel = tree_take(state.rec, sel)
+    grad, hess = replay.path_grad_hessian(
+        scene, opts, rec_sel, bake=_bake(scene, opts, rec_sel))
+    gauss_sel = h2mc_gauss(grad, hess, state.ss_score[sel])
 
-        def put(s, d):
-            d = d.clone()
-            d[sel] = s
-            return d
+    def put(s, d):
+        d = d.clone()
+        d[sel] = s
+        return d
 
-        gauss_cur_new = tree_map(put, gauss_sel, iso)
-        covered[sel] = True
-        covered &= need
+    any_need = need.any()
+    gauss_cur_new = tree_where(any_need, tree_map(put, gauss_sel, iso), iso)
+    covered = torch.zeros_like(need).index_fill_(0, sel, True)
+    covered &= need
     gauss_cur_new = _where_gauss(covered, gauss_cur_new, iso)
     cur_ok = ~(need & ~covered)
     gauss_cur = _where_gauss(state.gaussian_init, state.gaussian,

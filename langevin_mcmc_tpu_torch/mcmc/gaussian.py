@@ -13,6 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..ops.graphs import eager_call
+
 
 @dataclasses.dataclass
 class Gaussian:
@@ -31,7 +33,8 @@ class Gaussian:
 def isotropic_gaussian(C, dim, sigma, device, dense=False):
     """diag(sigma) around zero; dense=True also fills the dense factors
     (the H2MC form), else they are [C, 1, 1] placeholders."""
-    sigma = torch.as_tensor(sigma, dtype=torch.float32, device=device)
+    if not isinstance(sigma, torch.Tensor):
+        sigma = torch.full((), sigma, dtype=torch.float32, device=device)
     sigma = torch.broadcast_to(sigma, (C,))[:, None]
     inv_sq = 1.0 / torch.square(sigma)
     ddim = dim if dense else 1
@@ -87,8 +90,8 @@ def mala_gaussian(v1, v2, ss, shk, M, sc, opts):
     inv_cov = torch.where(zero, torch.full_like(inv_cov, shrk), inv_cov)
     cov_l_d = torch.where(zero, torch.full_like(cov, shk), torch.sqrt(cov))
     mean = torch.where(zero, torch.zeros_like(mean), mean)
-    log_shrk = torch.log(torch.tensor(shrk, dtype=torch.float32,
-                                      device=v1.device))
+    log_shrk = torch.log(torch.full((), shrk, dtype=torch.float32,
+                                    device=v1.device))
     log_det = torch.where(zero[:, 0], dim * log_shrk, log_det)
     eye = torch.ones((C, 1, 1), device=v1.device)
     return Gaussian(mean=mean, cov_l_d=cov_l_d, inv_cov_d=inv_cov,
@@ -104,6 +107,9 @@ EIGH_LANES = 8192
 
 
 def _eigh(hess):
+    """torch.linalg.eigh in batches of EIGH_LANES. Its error check reads
+    the solver's info flags on the host, so a captured chain step runs it
+    between graphs (ops/graphs.eager_call)."""
     parts = [torch.linalg.eigh(h) for h in torch.split(hess, EIGH_LANES)]
     return (torch.cat([p[0] for p in parts]),
             torch.cat([p[1] for p in parts]))
@@ -122,7 +128,7 @@ def h2mc_gaussian(grad, hess, sigma, sc, L=np.pi / 2.0):
     neg_offset = -(np.cos(L) - 1.0)
 
     inv_sigma_sq = 1.0 / (sigma * sigma)
-    eigval, eigvec = _eigh(hess)
+    eigval, eigvec = eager_call(_eigh, hess)
     abs_ev = torch.abs(eigval)
     nonzero = abs_ev > 1e-10
     eigen_buff = torch.where(nonzero, 1.0 / torch.clamp(abs_ev, min=1e-10),

@@ -60,22 +60,15 @@ def intersect_bruteforce(scene, org, d, time, min_t, max_t):
     """Closest hit over all triangles. org/d [R,3]; time, min_t, max_t [R].
     Returns (hit, tri_id, t, u, v). A hit is the smallest t; a tie goes to
     the first triangle within a chunk of TRI_CHUNK and to the earlier chunk
-    across chunks. Only live rays (max_t >= min_t: no other can hit) are
-    tested, in blocks of PAIR_BLOCK // TRI_CHUNK rays."""
-    R = org.shape[0]
-    dev = org.device
-    best_t = torch.full((R,), float('inf'), device=dev)
-    best_id = torch.zeros(R, dtype=torch.int32, device=dev)
-    best_u = torch.zeros(R, device=dev)
-    best_v = torch.zeros(R, device=dev)
-    live = torch.nonzero(max_t >= min_t)[:, 0]
+    across chunks. Every ray is tested (a dead one, max_t < min_t, hits
+    nothing), in fixed blocks of PAIR_BLOCK // TRI_CHUNK rays, as the JAX
+    package tests every ray: the shapes do not depend on the data."""
     rb = max(PAIR_BLOCK // TRI_CHUNK, 1)
-    for r0 in range(0, live.numel(), rb):
-        lanes = live[r0:r0 + rb]
-        out = _bruteforce_block(scene, org[lanes], d[lanes], time[lanes],
-                                min_t[lanes], max_t[lanes])
-        for full, part in zip((best_t, best_id, best_u, best_v), out):
-            full[lanes] = part
+    parts = [_bruteforce_block(scene, org[r0:r0 + rb], d[r0:r0 + rb],
+                               time[r0:r0 + rb], min_t[r0:r0 + rb],
+                               max_t[r0:r0 + rb])
+             for r0 in range(0, max(org.shape[0], 1), rb)]
+    best_t, best_id, best_u, best_v = (torch.cat(x) for x in zip(*parts))
     hit = torch.isfinite(best_t)
     return hit, best_id, torch.where(hit, best_t, torch.zeros_like(best_t)), \
         best_u, best_v

@@ -124,6 +124,17 @@ def all_reduce_sum(t):
     return t
 
 
+def all_reduce_min(t):
+    """The least t over every rank, in place; returns t."""
+    if not dist.is_initialized():
+        return t
+    src = _staged(t)
+    dist.all_reduce(src, op=dist.ReduceOp.MIN, group=_group)
+    if src is not t:
+        t.copy_(src)
+    return t
+
+
 def all_gather_tree(tree):
     """Every rank's tree of [S, ...] tensors, concatenated along the first
     axis in rank order ([world * S, ...]). The leaves travel as one byte
@@ -200,12 +211,20 @@ def render_mlt_multihost(scene, opts, seed, num_steps=None, chunk=4096,
     mesh: this process's shards (default: one, on scene.device). seed: the
     run's seed (the CLI's seed offset); the bootstrap, the direct pass and
     the chain loop take seeds folded from it. num_steps: chain iterations
-    (default spp * pixels / global chains), in calls of n_inner = min(16,
-    num_steps) iterations (the last call may be shorter), the caches
-    merged every MERGE_EVERY calls and the large-step probability
-    switched at call boundaries. timings: optional dict, filled with
-    'bootstrap_s', 'loop_s', 'direct_s', 'steps', this process's step
-    counts and 'cache_rows_ready' as render_mlt fills them, and
+    (default spp * pixels / global chains), run as the JAX package's loop
+    runs them: whole calls of n_inner = min(16, num_steps) iterations
+    (make_sharded_multi_step) while fewer than num_steps are done, so the
+    run may pass num_steps and the film is divided by the iterations
+    done; the large-step probability switched after the call that passes
+    int(num_steps * ls_ratio); the caches merged every MERGE_EVERY calls.
+    A call whose n_done falls short of n_inner (a non-finite chain state)
+    raises RuntimeError. timings: optional dict, filled with
+    'bootstrap_s', 'loop_s', 'direct_s', 'steps' and 'n_done' (the
+    iterations done: the calls' n_done summed), 'calls', 'n_inner',
+    this process's step counts and 'cache_rows_ready' as render_mlt fills
+    them, the captured graphs of its first group's steps (render_mlt's
+    'graphs', 'eager_calls', 'graph_nodes', 'capture_s',
+    'instantiate_s'), and
     'merges', 'merge_s' (inside loop_s), 'merge_bytes' (the gathered
     caches a merge brings to each rank), 'reduce_s' (the film reduce),
     'world' and 'shards'.
@@ -242,10 +261,14 @@ def render_mlt_multihost(scene, opts, seed, num_steps=None, chunk=4096,
     scale = 1.0 if opts.h2mc else opts.large_step_prob_scale
     ls_prob2 = min(ls_prob1 * scale, 1.0)
     n_inner = max(1, min(16, num_steps))
+    pools = [torch.cuda.graph_pool_handle() if d.type == 'cuda' else None
+             for d, _, _ in mesh.groups]
     step1 = make_sharded_multi_step(mesh, scene, run_opts, b, ls_prob1,
-                                    n_inner, length_dist=length_dist)
+                                    n_inner, length_dist=length_dist,
+                                    pools=pools)
     step2 = step1 if ls_prob2 == ls_prob1 else make_sharded_multi_step(
-        mesh, scene, run_opts, b, ls_prob2, n_inner, length_dist=length_dist)
+        mesh, scene, run_opts, b, ls_prob2, n_inner, length_dist=length_dist,
+        pools=pools)
     gens = shard_generators(mesh, seed_loop)
     phase_switch = int(num_steps * opts.ls_ratio)
     done = outer = merges = 0
@@ -253,9 +276,13 @@ def render_mlt_multihost(scene, opts, seed, num_steps=None, chunk=4096,
     t0 = time.time()
     while done < num_steps:
         step = step1 if done <= phase_switch else step2
-        n = min(n_inner, num_steps - done)
-        banks = step(gens, banks, films, init, n)
-        done += n
+        banks, films, n_done = step(gens, banks, films, init)
+        if n_done < n_inner:
+            # the device counter grows only while the chain state stays
+            # finite: looping on would never end
+            raise RuntimeError(f'multihost step ran {n_done}/{n_inner} '
+                               f'iterations: non-finite chain state')
+        done += n_done
         outer += 1
         if has_cache and outer % MERGE_EVERY == 0:
             sync()
@@ -291,11 +318,13 @@ def render_mlt_multihost(scene, opts, seed, num_steps=None, chunk=4096,
         direct = torch.zeros_like(indirect)
     sync()
     timings['direct_s'] = time.time() - t0
-    timings.update(steps=done, merges=merges, merge_s=merge_s,
-                   world=mesh.world, shards=mesh.num_shards)
+    timings.update(steps=done, n_done=done, n_inner=n_inner, calls=outer,
+                   merges=merges, merge_s=merge_s, world=mesh.world,
+                   shards=mesh.num_shards)
     for st in {step1, step2}:
         for k, v in st.counts().items():
             timings[k] = timings.get(k, 0) + v
+    timings.update(mlt.graph_stats([step1.multis[0], step2.multis[0]]))
     if has_cache:
         timings['cache_rows_ready'] = int(
             (banks[0].cache.count >= banks[0].cache.size).sum())

@@ -2,9 +2,9 @@
 parallel/shardmap_step.py).
 
 Each group of shards (parallel/mesh.py: a run of shards on one device)
-runs the single-device step (integrators/mlt.make_mlt_step) on its
-shards' chains, with one film partition per shard and its own global PSS
-cache:
+runs the single-device multi-step (integrators/mlt.make_mlt_multi_step:
+n_inner iterations a call, CUDA graphs on the card) on its shards'
+chains, with one film partition per shard and its own global PSS cache:
 
 * chains: data-parallel, C/S lanes a shard, each group with its own
   torch.Generator seeded from the run's seed and the global index of its
@@ -18,9 +18,8 @@ cache:
   order, so a merge that appends the groups' new entries in order only
   reorders arrivals, as another thread schedule would.
 
-The JAX package fuses n_inner steps into one scan per call; here n_inner
-is a plain loop, kept because it places the large-step phase switch and
-the merge cadence where the JAX package's render loop places them.
+A call's n_done is the least over the groups of every process, as the
+JAX package's pmin over the mesh: every rank sees the same count.
 """
 
 import numpy as np
@@ -113,39 +112,48 @@ def merge_stacked(stacked, prev_count):
 
 
 def make_sharded_multi_step(mesh, scene, opts, normalization, ls_prob,
-                            n_inner, length_dist=None):
+                            n_inner, length_dist=None, pools=None):
     """The sharded multi-step over mesh's local groups. opts.num_chains is
     the GLOBAL chain count; each shard steps num_chains / mesh.num_shards
-    chains. Call as step(gens, banked, films, init_banked, n=n_inner) with
-    one generator, BankedState (its cache that group's own), [g, H, W, 3]
-    film (accumulated in place) and seed state per group; it runs n
-    iterations of every group and returns the new BankedStates.
-    step.counts() sums the groups' step counts (make_mlt_step) as ints."""
+    chains. Call as step(gens, banked, films, init_banked) with one
+    generator, BankedState (its cache that group's own), [g, H, W, 3]
+    film and seed state per group: every group runs n_inner iterations
+    (one make_mlt_multi_step call; pools: each group's graph memory pool,
+    or None). Returns (banked, films, n_done): the groups' new
+    BankedStates and films (the multi-steps' buffers, overwritten by the
+    next call) and the least n_done over every group of every process,
+    an int. step.counts() sums the groups' step counts (make_mlt_step) as
+    ints; step.multis are the groups' multi-steps."""
     S = mesh.num_shards
     C = opts.num_chains
     if C % S:
         raise ValueError(f'{C} chains do not split into {S} shards')
-    steps = [mlt.make_mlt_step(
+    pools = pools or [None] * len(mesh.groups)
+    multis = [mlt.make_mlt_multi_step(
         sc, opts.replace(num_chains=C // S * g), normalization, ls_prob,
-        length_dist=(length_dist.to(dev) if length_dist is not None
-                     else None), film_shards=g)
-        for (dev, _, g), sc in zip(mesh.groups, replicate(mesh, scene))]
+        n_inner, length_dist=(length_dist.to(dev) if length_dist is not None
+                              else None), film_shards=g, pool=pool)
+        for (dev, _, g), sc, pool in zip(mesh.groups, replicate(mesh, scene),
+                                         pools)]
 
-    def step(gens, banked, films, init_banked, n=n_inner):
-        banked = list(banked)
-        for _ in range(n):
-            for i, st in enumerate(steps):
-                banked[i] = st(gens[i], banked[i], films[i], init_banked[i])
-        return banked
+    def step(gens, banked, films, init_banked):
+        out = [m(gens[i], banked[i], films[i], init_banked[i])
+               for i, m in enumerate(multis)]
+        first = out[0][2].device
+        n_done = torch.stack([o[2].to(first) for o in out]).min()
+        from .multihost import all_reduce_min
+        return ([o[0] for o in out], [o[1] for o in out],
+                int(all_reduce_min(n_done)))
 
     def counts():
         out = {}
-        for st in steps:
-            for k, v in st.counts.items():
+        for m in multis:
+            for k, v in m.step.counts.items():
                 out[k] = out.get(k, 0) + int(v)
         return out
 
     step.counts = counts
+    step.multis = multis
     return step
 
 

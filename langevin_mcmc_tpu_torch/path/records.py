@@ -11,6 +11,7 @@ PSS layout, dim = 2 * pathLength with pathLength = s + t - 1:
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -91,10 +92,8 @@ class Contribs:
         (s + t - 1 <= D), plus the static (s_tags, t_tags)."""
         D = self.max_depth
         C = self.ls_score.shape[0]
-        cam_sel, lgt_sel, s_tags, t_tags = _slot_tables(D)
-        dev = self.ls_score.device
-        cs = torch.as_tensor(cam_sel, device=dev).long()
-        lsel = torch.as_tensor(lgt_sel, device=dev).long()
+        _, _, s_tags, t_tags = _slot_tables(D)
+        cs, lsel, _, _ = slot_tables_on(D, self.ls_score.device)
 
         def flat(cam, lgt, vec=0):
             cshape = (C, D * (D + 2)) + ((vec,) if vec else ())
@@ -120,6 +119,17 @@ def _slot_tables(D):
     s_tags = np.concatenate([s_cam[cam_sel], np.ones(len(lgt_sel), np.int64)])
     t_tags = np.concatenate([t_cam[cam_sel], t_lgt[lgt_sel]])
     return cam_sel, lgt_sel, s_tags.astype(np.int32), t_tags.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def slot_tables_on(D, device):
+    """_slot_tables(D) on device, made once a (D, device): (cam_sel,
+    lgt_sel) int64, (s_tags, t_tags) int32. A captured chain step copies
+    nothing from the host."""
+    cam_sel, lgt_sel, s_tags, t_tags = _slot_tables(D)
+    on = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
+    return (on(cam_sel, torch.int64), on(lgt_sel, torch.int64),
+            on(s_tags, torch.int32), on(t_tags, torch.int32))
 
 
 def empty_contribs(C, D, device):

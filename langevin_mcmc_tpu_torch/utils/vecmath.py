@@ -70,11 +70,11 @@ def coordinate_system(n):
     degenerate = z < (-1.0 + 1e-6)
     a = 1.0 / torch.where(degenerate, torch.ones_like(z), 1.0 + z)
     b = -x * y * a
-    b0 = torch.stack([1.0 - x * x * a, b, -x], -1)
-    b1 = torch.stack([b, 1.0 - y * y * a, -y], -1)
-    deg = degenerate[..., None]
-    b0 = torch.where(deg, n.new_tensor([0.0, -1.0, 0.0]), b0)
-    b1 = torch.where(deg, n.new_tensor([-1.0, 0.0, 0.0]), b1)
+    # the degenerate frame is ((0, -1, 0), (-1, 0, 0)), selected per
+    # component (no constant tensor copied from the host)
+    d = lambda v, c: torch.where(degenerate, v, c)
+    b0 = torch.stack([d(0.0, 1.0 - x * x * a), d(-1.0, b), d(0.0, -x)], -1)
+    b1 = torch.stack([d(-1.0, b), d(0.0, 1.0 - y * y * a), d(0.0, -y)], -1)
     return b0, b1
 
 

@@ -35,8 +35,15 @@ else:
      chunk lists); walk_resident is the resident form's;
   2. profiles 3 further steps with torch.profiler and prints the CUDA
      kernels by total device time, and their sum over the step time measured
-     without syncs or profiler (the device-busy share).
-Prints one JSON line with both breakdowns after each scene's.
+     without syncs or profiler (the device-busy share);
+  3. the same step captured (make_mlt_multi_step, n_inner 3): the graphs a
+     step, the eager calls between them and the graphs' nodes, the
+     synchronised ms of one replayed iteration (over one call of 3
+     replays), and the kernels' device time an iteration over a profiled
+     call of replays, over that replayed iteration's ms (the captured
+     step's busy share, as 2 takes the eager step's), beside the eager
+     step's numbers of 1 and 2.
+Prints one JSON line with all three after each scene's.
 """
 
 import collections
@@ -195,6 +202,7 @@ def profile_scene(xml, label, card, prefill=False, time_only=False,
         print(f'BVH kernel: {bvh_ms:.2f} ms/step device time = '
               f'{bvh_ms / (dev_total / STEPS):.4f} of the step\'s device '
               f'time, {bvh_ms / plain_ms:.4f} of the unprofiled step')
+    cap = captured(scene, opts, b, length_dist, gen, banked, frame, init)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:15]
     rows = []
     for e in top:
@@ -212,7 +220,49 @@ def profile_scene(xml, label, card, prefill=False, time_only=False,
                           busy_share=busy,
                           launches_per_step=launches / STEPS,
                           bvh_kernel_ms=bvh_ms,
-                          top_kernels=rows)))
+                          top_kernels=rows, captured=cap)))
+
+
+def captured(scene, opts, b, length_dist, gen, banked, frame, init):
+    """Section 3: the step captured as CUDA graphs. Returns its numbers."""
+    from langevin_mcmc_tpu_torch.integrators import mlt
+    from torch.profiler import profile, ProfilerActivity
+    from torch.autograd import DeviceType
+    with torch.no_grad():
+        multi = mlt.make_mlt_multi_step(scene, opts, b,
+                                        opts.large_step_probability, STEPS,
+                                        length_dist=length_dist)
+        banked, frame, _ = multi(gen, banked, frame, init)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        banked, frame, n_done = multi(gen, banked, frame, init)
+        torch.cuda.synchronize()
+        replay_ms = 1e3 * (time.perf_counter() - t0) / STEPS
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            multi(gen, banked, frame, init)
+            torch.cuda.synchronize()
+        window = 1e3 * (time.perf_counter() - t0) / STEPS
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    dev = sum(e.self_device_time_total for e in events) / 1e3 / STEPS
+    g = multi.graphs
+    out = dict(graphs=len(g.graphs), eager_calls=len(g.calls),
+               graph_nodes=sum(g.nodes), replay_ms=replay_ms,
+               n_done=int(n_done), window_ms=window, device_ms=dev,
+               busy_share=dev / replay_ms,
+               kernels_per_step=sum(e.count for e in events) / STEPS,
+               capture_s=g.capture_s, instantiate_s=g.instantiate_s)
+    print(f'captured step: {out["graphs"]} graph(s), {out["eager_calls"]} '
+          f'eager call(s), {out["graph_nodes"]} nodes; {replay_ms:.1f} ms '
+          f'an iteration (synchronised, replays; n_done {int(n_done)} of '
+          f'{STEPS}); profiled: {window:.1f} ms an iteration, {dev:.1f} ms '
+          f'device kernel time = busy share {out["busy_share"]:.3f}, '
+          f'{out["kernels_per_step"]:.0f} kernels an iteration seen by the '
+          f'profiler; capture {g.capture_s:.2f} s, instantiate '
+          f'{g.instantiate_s:.2f} s', flush=True)
+    return out
 
 
 if __name__ == '__main__':

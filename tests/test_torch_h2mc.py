@@ -299,7 +299,7 @@ def test_h2mc_matches_mc_mean():
         mc = to_np(render_mc(scene, opts.replace(spp=64),
                              torch.Generator().manual_seed(0), chunk=4096))
         film, b = render_mlt(scene, opts, torch.Generator().manual_seed(1),
-                             num_steps=20, chunk=4096)
+                             num_steps=20, chunk=4096, n_inner=10)
     img = to_np(film)
     assert np.isfinite(img).all()
     m_mc, m_mlt = mc.mean(), img.mean()

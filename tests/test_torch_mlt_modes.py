@@ -167,7 +167,7 @@ def test_mcmc_matches_mc_mean(lcbox_mc, mode):
                 int(counts['cache_accepts']) > 0, counts
         else:
             film, _ = mlt.render_mlt(scene, opts, gen, num_steps=STEPS,
-                                     chunk=4096)
+                                     chunk=4096, n_inner=8)
     img = to_np(film)
     assert np.isfinite(img).all()
     m_mc, m_mlt = mc.mean(), img.mean()

@@ -44,7 +44,7 @@ def test_mcmc_matches_mc_mean_open_scene(open_xml):
         mc = to_np(render_mc(scene, opts.replace(spp=32),
                              torch.Generator().manual_seed(0), chunk=4096))
         film, b = render_mlt(scene, opts, torch.Generator().manual_seed(1),
-                             num_steps=100, chunk=4096)
+                             num_steps=100, chunk=4096, n_inner=10)
     img = to_np(film)
     assert np.isfinite(img).all() and img.min() >= 0.0
     m_mc, m_mlt = mc.mean(), img.mean()

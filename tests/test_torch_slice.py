@@ -48,7 +48,9 @@ def test_cli_renders_lcbox(tmp_path):
     assert np.isfinite(img).all() and img.min() >= 0.0
     assert img.mean() > 0.0
     np.testing.assert_allclose(img, r['film'], rtol=1e-6)
-    assert r['b'] > 0.0 and r['timings']['steps'] == 2 * 64 * 48 // 256
+    # 2 spp over 256 chains is 24 iterations, rounded up to whole calls of
+    # 16 as the JAX package's render loop rounds them
+    assert r['b'] > 0.0 and r['timings']['steps'] == 32
 
 
 def test_package_imports_without_jax():
