@@ -55,16 +55,20 @@ Phases (any failure exits non-zero before the last line is printed):
      --spp 1 (12 chain iterations, one call of the multi-step); it runs
      K1/K2. Then the graph phase of path A's configuration
      (graph_parity): from one bootstrapped state and one generator state,
-     8 eager iterations (make_mlt_step, with no host sync:
-     torch.cuda.set_sync_debug_mode('error')) and the same 8 through the
-     multi-step (a warm-up, the capture, replays): the chain state bit for
-     bit, step.counts and the K1/K2 launches equal, the film to rtol 1e-5;
-     then eager and captured ms an iteration side by side;
+     8 eager iterations (make_mlt_step, with no host sync outside the
+     eager calls: torch.cuda.set_sync_debug_mode('error')) and the same 8
+     through the multi-step (a warm-up, the capture, replays): the chain
+     state bit for bit, step.counts and every kernel's launches equal,
+     the film to rtol 1e-5; then eager and captured ms an iteration side
+     by side. Every MCMC path but H has such a graph phase after its
+     render (PARITY_STEPS iterations);
   9. path B, the same configuration with H2MC small steps and
      LMCMC_ISECT_BACKEND=pallas, so it runs K4, through render_mlt cut to
      4 chain iterations (PATH_B_STEPS; an H2MC iteration takes ~15-21 s);
      the ratio of the two chain loops' proposals/s is the H2MC/MALA cost
-     ratio at the same tuning;
+     ratio at the same tuning; its graph phase holds the step split into
+     graphs around the eigh calls (ops/graphs.eager_call) against the
+     eager step;
  10. path C, the MC integrator on the flagship scene (--spp 1) with
      LMC_CW_VMEM_BYTES=6291456, so it runs K3;
  11. path D, path A's configuration on the open scene; it runs K1/K2;
@@ -76,9 +80,12 @@ Phases (any failure exits non-zero before the last line is printed):
      generated lanes that carried light-coordinate parameters;
  13. the graph phase of path E's configuration: graph_parity (below,
      after path A) on path E's state bootstrapped at full width with the
-     cache rows pre-filled from the seed states (paths included), so the
-     cache branch runs (it must, on some lanes); also the gradients that a
-     step now computes on every call (unconditional_cost);
+     seed states (paths included) pushed twice into the cache, so that
+     every row they reach is full: the cache branch runs (it must, on some
+     lanes) and no lane starts in the gradient phase, so the captured
+     step's gradient branches (ops/graphs.cond_call) are skipped; their
+     runs and skips are printed, and the replays are timed again with the
+     branches computed and selected (as before cond_call) in this call;
  14. path H, path E's configuration with --spp 6 rendered by two ranks of
      the CLI (--coordinator 127.0.0.1:<free port> --num-processes 2
      --process-id 0/1; each rank is `python3 chip_smoke.py --rank OUT
@@ -94,12 +101,12 @@ Phases (any failure exits non-zero before the last line is printed):
      summed proposals/s over path E's;
  15. path F, path D's configuration with --motion (the torus and the quad
      light turn and move between two keyframes, the camera pans, the env
-     map turns), through render_mlt cut to 4 chain iterations and 65,536
-     bootstrap samples (PATH_F_STEPS, PATH_F_INIT_SAMPLES: the brute force
-     tests every ray in fixed blocks, as the JAX package's does, so a
-     query costs 2.9-3.8x its live rays): every ray query is the motion
-     brute force in torch (no kernel), the frozen replay and path_grad run
-     without a bake. Before
+     map turns), through the CLI (--spp 1, 12 iterations): every ray
+     query is the motion brute force in torch (no kernel), which gathers
+     its live rays on the host, so a captured step runs each query
+     between two graphs (ops/graphs.eager_call); the frozen replay and
+     path_grad run without a bake. Its graph phase bootstraps 65,536
+     samples (PATH_F_PARITY_INIT_SAMPLES). Before
      it, one brute-force closest-hit and one any-hit query at 65,536 rays
      on that scene, timed by CUDA events (the closest hit also at blocks
      of 2^20, 2^22 and 2^24 ray-triangle pairs, each checked equal); after
@@ -118,9 +125,13 @@ make_mlt_multi_step (integrators/mlt.py): CUDA graphs of the chain step
 on the card, n_inner iterations a call on the JAX package's schedule. Per
 path it prints the graphs a step and the eager calls between them (named:
 H2MC's torch.linalg.eigh reads its error flags on the host, so path B's
-step is three graphs around two eigh calls), their nodes, the capture and
-instantiate seconds, and n_done against the iterations scheduled, which
-must be equal. Each render's film must be finite, non-negative, non-zero
+step is split around two eigh calls; path F's around every brute-force
+query), the cond_call branches (MALA's two gradients) and how often they
+ran, their nodes, the capture and instantiate seconds, and n_done
+against the iterations scheduled, which must be equal. The render's
+first iteration (eager, lazy set-up included) is printed beside its
+replays; eager against captured ms an iteration comes from the graph
+phases, summed up in one line. Each render's film must be finite, non-negative, non-zero
 and 768x1024x3 (path D's and path F's top rows, the sky, lit too), and
 each kernel must have been launched by the path that runs it (the launch
 counts are reset just before each path and read just after; a captured
@@ -166,10 +177,12 @@ INIT_SAMPLES = 300000   # numinitsamples of the flagship render
 CHUNK = 32768           # wavefront of the bootstrap and direct passes
 RESIDENT_BYTES = 6291456  # LMC_CW_VMEM_BYTES of path C
 PATH_B_STEPS = 4        # path B's chain iterations (H2MC: ~15-21 s each)
-# path F's chain iterations and bootstrap samples: its brute force tests
-# every ray in fixed blocks, dead ones too (2.9-3.8x the live rays)
-PATH_F_STEPS = 4
-PATH_F_INIT_SAMPLES = 65536
+# graph phases' iterations: 8 on paths A and E; 3 on H2MC (path B) and the
+# moving brute force (path F), whose eager iterations take seconds; 4 on
+# the others. From the third on, an iteration is a replay.
+PARITY_STEPS = dict(A=8, B=3, D=4, E=8, F=3, G=4, I=4)
+# bootstrap samples of path F's graph phase (its render keeps 300,000)
+PATH_F_PARITY_INIT_SAMPLES = 65536
 OPS_PER_TEST = 40       # f32 operations of one ray-triangle test
 OPS_PER_SLAB = 25       # f32 operations of one ray-AABB slab test
 OPS_PER_MT = 61         # f32 operations of one Moller-Trumbore test
@@ -751,7 +764,8 @@ class BruteForceCounter:
     active (occluded queries call intersect_bruteforce too): queries and
     rays; outside a CUDA graph capture also live rays and host-clock
     seconds, each such query ending in a device sync. A captured step's
-    queries are issued once, at its capture, and rerun by every replay."""
+    queries are issued once, at its capture, as eager calls between its
+    graphs, and rerun by every replay."""
 
     def __init__(self):
         self.calls = self.rays = self.live = 0
@@ -865,25 +879,31 @@ def chain_rate(label, res):
 
 def graph_line(label, tm):
     """A render's captured chain loop (render_mlt's timings): graphs a
-    step, the eager calls between them (named), their nodes, the capture
-    and instantiate seconds, n_done against the iterations scheduled,
-    which must be equal, and eager against captured ms an iteration in
-    this render: the warm-up iterations (eager) against the replays (the
-    chain loop less the warm-ups, the capturing iterations and the cache
-    merges, over the iterations left)."""
+    step, the eager calls between them (named), the cond_call branches
+    and how often they ran and were skipped, their nodes, the capture and
+    instantiate seconds, n_done against the iterations scheduled, which
+    must be equal; and the ms of the render's first iteration (eager, the
+    process's first step of this configuration: lazy set-up included, so
+    no eager time to compare: that is the graph phase's) beside its
+    replays (the chain loop less the warm-ups, the capturing iterations
+    and the cache merges, over the iterations left). Returns the replays'
+    ms an iteration, or None."""
     scheduled = tm.get('calls', tm['steps'] // tm['n_inner']) * tm['n_inner']
     replays = tm['steps'] - 2 * tm.get('warmups', 0)
+    captured = None
     if tm.get('warmups') and replays > 0:
-        eager = tm['warmup_s'] / tm['warmups'] * 1e3
+        first = tm['warmup_s'] / tm['warmups'] * 1e3
         captured = (tm['loop_s'] - tm['warmup_s'] - tm['capture_pass_s']
                     - tm.get('merge_s', 0.0)) / replays * 1e3
-        log(f'{label}: eager {eager:.1f} ms an iteration (the warm-up), '
-            f'captured {captured:.1f} ms an iteration ({replays} replays), '
-            f'eager / captured {eager / captured:.3f}; the capturing '
-            f'iteration {tm["capture_pass_s"]:.2f} s')
+        log(f'{label}: first iteration (eager warm-up, lazy set-up '
+            f'included) {first:.1f} ms; replays {captured:.1f} ms an '
+            f'iteration ({replays} of them); the capturing iteration '
+            f'{tm["capture_pass_s"]:.2f} s')
     log(f'{label}: chain loop from CUDA graphs: {tm.get("graphs", 0)} '
         f'graph(s) a step, {tm.get("eager_calls", 0)} eager call(s) between '
-        f'them {tm.get("eager_fns", [])}, {tm.get("graph_nodes", 0)} nodes; '
+        f'them {tm.get("eager_fns", [])}, {tm.get("branches", 0)} '
+        f'cond_call branch(es) (ran {tm.get("branch_runs", 0)}, skipped '
+        f'{tm.get("branch_skips", 0)}), {tm.get("graph_nodes", 0)} nodes; '
         f'capture {tm.get("capture_s", 0.0):.2f} s, instantiate '
         f'{tm.get("instantiate_s", 0.0):.2f} s; n_done {tm["n_done"]} of '
         f'{scheduled} iterations scheduled (calls of {tm["n_inner"]})')
@@ -892,6 +912,7 @@ def graph_line(label, tm):
     if tm['n_done'] != scheduled or tm['steps'] != scheduled:
         raise AssertionError(f'{label}: n_done {tm["n_done"]}, steps '
                              f'{tm["steps"]}, scheduled {scheduled}')
+    return captured
 
 
 def large_step_line(label, res, lc_counter):
@@ -920,43 +941,63 @@ def cache_bytes(cache):
     return nbytes(*tensors(cache)) + rec, rec
 
 
-def prefill_cache(banked, opts):
+def prefill_cache(banked, opts, times=2):
     """The banked state with every seed state (path included) pushed into
-    the cache: the rows of the dimensions with at least pss_max_size seeds
-    fill."""
+    the cache `times` times: the rows of the dimensions with at least
+    pss_max_size / times seeds fill (on the box, every row a seed state
+    reaches, so that each lane starts in the cache phase)."""
     from langevin_mcmc_tpu_torch.mcmc import cache as cache_mod
     from langevin_mcmc_tpu_torch.path.records import get_path_pss, pss_dim
     st = banked.state
     C, Dm = opts.num_chains, 2 * opts.max_depth
     dev = st.ls_score.device
     zero = torch.zeros((C, Dm), device=dev)
-    cache = cache_mod.push_batch(
-        banked.cache, pss_dim(st.rec), get_path_pss(st.rec, Dm), zero, zero,
-        st.ls_score, torch.ones(C, dtype=torch.bool, device=dev), opts,
-        s_tag=st.rec.cam_depth, t_tag=st.rec.lgt_depth, rec=st.rec)
+    cache = banked.cache
+    for _ in range(times):
+        cache = cache_mod.push_batch(
+            cache, pss_dim(st.rec), get_path_pss(st.rec, Dm), zero, zero,
+            st.ls_score, torch.ones(C, dtype=torch.bool, device=dev), opts,
+            s_tag=st.rec.cam_depth, t_tag=st.rec.lgt_depth, rec=st.rec)
     return dataclasses.replace(banked, cache=cache)
 
 
 def sync_free(fn):
     """fn() under torch.cuda.set_sync_debug_mode('error'): any host sync
-    raises (the eager calls a captured step makes between its graphs,
-    ops/graphs.eager_call, run with the mode off)."""
+    raises, but in the calls a captured step makes between its graphs
+    (ops/graphs.eager_call: H2MC's eigh, the motion brute force), which
+    run with the mode off."""
     from langevin_mcmc_tpu_torch.mcmc import gaussian
-    orig = gaussian.eager_call
+    from langevin_mcmc_tpu_torch.ops import graphs, intersect
+    users = (gaussian, intersect)
 
     def off(f, *a):
         torch.cuda.set_sync_debug_mode(0)
         try:
-            return orig(f, *a)
+            return graphs.eager_call(f, *a)
         finally:
             torch.cuda.set_sync_debug_mode('error')
-    gaussian.eager_call = off
+    for m in users:
+        m.eager_call = off
     torch.cuda.set_sync_debug_mode('error')
     try:
         return fn()
     finally:
         torch.cuda.set_sync_debug_mode(0)
-        gaussian.eager_call = orig
+        for m in users:
+            m.eager_call = graphs.eager_call
+
+
+def all_launches():
+    """Every kernel wrapper's launch counts, by module."""
+    from langevin_mcmc_tpu_torch.ops import bvh, chunkwalk, sweep_isect
+    return {m.__name__.rsplit('.', 1)[1]: dict(m.launch_counts)
+            for m in (chunkwalk, sweep_isect, bvh)}
+
+
+def reset_launches():
+    from langevin_mcmc_tpu_torch.ops import bvh, chunkwalk, sweep_isect
+    for m in (chunkwalk, sweep_isect, bvh):
+        m.reset_launch_counts()
 
 
 def timed(fn):
@@ -968,50 +1009,55 @@ def timed(fn):
     return out, time.time() - t0
 
 
-def unconditional_cost(scene, opts, banked):
-    """CUDA-event ms of one replay of a captured path_grad (bake included)
-    of every lane (the proposal side) and of cur_grad_fraction of the
-    lanes (the current side): the gradients a MALA step now computes on
-    every call where the JAX package's lax.cond skips them when no lane
-    needs them. Returns (all lanes ms, Kc lanes ms, Kc)."""
-    from langevin_mcmc_tpu_torch.ops.graphs import StepGraphs
-    from langevin_mcmc_tpu_torch.path import replay
-    from langevin_mcmc_tpu_torch.utils.tree import tree_take
-    rec = banked.state.rec
-    C = opts.num_chains
-    Kc = min(C, max(int(C * opts.cur_grad_fraction), 8))
-    sub = tree_take(rec, torch.arange(Kc, device='cuda'))
-
-    def replay_ms(r):
-        fn = lambda: replay.path_grad(scene, opts, r,
-                                      bake=replay.bake_frozen(scene, opts, r))
-        g = StepGraphs('cuda')
-        g.run_eager(fn)
-        g.capture(fn)
-        return cuda_ms(g.replay, 3)
-    with torch.no_grad():
-        return replay_ms(rec), replay_ms(sub), Kc
+def unconditional(flag, fn, *args):
+    """ops/graphs.cond_call as it runs outside a capture: the branch on
+    every call, selected on the device (what a captured step ran before
+    cond_call captured its branches apart)."""
+    out = fn(*args)
+    sel = lambda o: torch.where(flag, o, torch.zeros_like(o))
+    return tuple(map(sel, out)) if isinstance(out, tuple) else sel(out)
 
 
-def graph_parity(label, xml, prefill=False, steps=8):
+def graph_parity(label, xml, prefill=False, steps=8, env=None, bvh=False):
     """From one bootstrapped state and one generator state at full width:
-    `steps` iterations of the eager step (make_mlt_step, under
-    sync_free: no host sync), then the same through one call of
+    `steps` iterations of the eager step (make_mlt_step, under sync_free:
+    no host sync outside eager_call), then the same through one call of
     make_mlt_multi_step (the warm-up, the capture, replays). The chain
-    state must be equal bit for bit and step.counts equal; the film is
-    held to rtol 1e-5 (index_add_ splats with atomics). Then `steps` more
-    eager iterations and one more call of the multi-step (all replays)
-    from where each stood, timed in turn: eager and captured ms an
-    iteration side by side. prefill: path E's configuration with the
-    cache rows pre-filled from the seed states (paths included), so the
-    cache-seeded large step and the cache phase run from the first
-    iteration; it must take the cache branch, and the gradients that now
-    run unconditionally are timed (unconditional_cost)."""
+    state must be equal bit for bit, step.counts and every kernel's
+    launches equal; the film is held to rtol 1e-5 (index_add_ splats with
+    atomics). Then one more call of the multi-step (all replays) from
+    where it stood, timed: eager (the first `steps`, run after the path's
+    render in this process, so warm) and captured ms an iteration side by
+    side. env: environment variables set around it (path B's backend);
+    bvh: attach a BVH (path I). prefill: path E's configuration with the
+    seed states (paths included) pushed twice into the cache, so that
+    every row they reach is full: the cache-seeded large step and the
+    cache phase run from the first iteration (it must take the cache
+    branch) and no lane needs a gradient; the same replays are also timed
+    with the gradient branches unconditional (computed and selected, as
+    before cond_call), in this call. Returns (eager ms, captured ms)."""
     from langevin_mcmc_tpu_torch.scene.parse import parse_scene
+    from langevin_mcmc_tpu_torch.ops import bvh as bvh_mod
+    env = env or {}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        scene, opts, _ = parse_scene(xml, device='cuda')
+        if bvh:
+            scene = bvh_mod.attach_bvh(scene)
+        return _graph_parity(label, scene, opts, prefill, steps)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _graph_parity(label, scene, opts, prefill, steps):
     from langevin_mcmc_tpu_torch.integrators import mlt
-    from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
+    from langevin_mcmc_tpu_torch.mcmc import chain
     from langevin_mcmc_tpu_torch.utils.tree import tree_leaves
-    scene, opts, _ = parse_scene(xml, device='cuda')
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device='cuda').manual_seed(2)
     C = opts.num_chains
@@ -1040,17 +1086,17 @@ def graph_parity(label, xml, prefill=False, steps=8):
             for _ in range(n):
                 banked = step(gen, banked, film, init)
             return banked
-        cw.reset_launch_counts()
-        want, t_e1 = timed(lambda: sync_free(
+        reset_launches()
+        want, t_e = timed(lambda: sync_free(
             lambda: eager(banked0, film_e, steps)))
-        launches_e = dict(cw.launch_counts)
+        launches_e = all_launches()
         gen.set_state(state0)
         multi = mlt.make_mlt_multi_step(scene, opts, b, lsp, steps,
                                         length_dist=ld)
-        cw.reset_launch_counts()
+        reset_launches()
         (got, film_c, n_done), t_c1 = timed(lambda: multi(
             gen, banked0, torch.zeros(shape, device='cuda'), init))
-        launches_c = dict(cw.launch_counts)
+        launches_c = all_launches()
         differ = [i for i, (a, c) in enumerate(zip(tree_leaves(want.state),
                                                    tree_leaves(got.state)))
                   if not torch.equal(a, c)]
@@ -1064,16 +1110,18 @@ def graph_parity(label, xml, prefill=False, steps=8):
             torch.equal(a, c) for a, c in zip(tree_leaves(want.cache),
                                               tree_leaves(got.cache))))
         g = multi.graphs
-        log(f'{label}: {steps} eager iterations (no host sync) and the same '
-            f'{steps} through the multi-step ({len(g.graphs)} graph(s), '
-            f'{len(g.calls)} eager call(s), {sum(g.nodes)} nodes; capture '
+        log(f'{label}: {steps} eager iterations (no host sync outside the '
+            f'eager calls) and the same {steps} through the multi-step '
+            f'({len(g.graphs)} graph(s), {len(g.calls)} eager call(s), '
+            f'{len(g.branches)} cond_call branch(es): ran {g.branch_runs}, '
+            f'skipped {g.branch_skips}; {sum(g.nodes)} nodes; capture '
             f'{g.capture_s:.2f} s, instantiate {g.instantiate_s:.2f} s) from '
             f'one state: n_done {int(n_done)}; chain state '
             f'{"bit for bit" if not differ else f"leaves {differ} differ"}; '
             f'cache {"equal" if cache_same else "differs"}; counts '
             f'{counts_e} vs {counts_c}; film '
             f'{"bit for bit" if bit_film else f"max rel diff {film_err:.3g}"}'
-            f'; K1/K2 launches {launches_e} vs {launches_c}; bootstrap '
+            f'; launches {launches_e} vs {launches_c}; bootstrap '
             f'{t_boot:.2f} s')
         if differ or counts_e != counts_c or not film_ok \
                 or int(n_done) != steps or launches_e != launches_c:
@@ -1081,24 +1129,35 @@ def graph_parity(label, xml, prefill=False, steps=8):
                                  f'differ')
         if prefill and counts_e['cache'] <= 0:
             raise AssertionError(f'{label}: no lane took the cache branch')
-        # timed in turn, each from where it stood
-        _, t_e2 = timed(lambda: eager(want, film_e, steps))
         (_, _, n2), t_c2 = timed(lambda: multi(gen, got, film_c, init))
-    ms_e, ms_c = t_e2 / steps * 1e3, t_c2 / steps * 1e3
+        uncond_ms = None
+        if prefill:
+            orig = chain.cond_call
+            chain.cond_call = unconditional
+            try:
+                m2 = mlt.make_mlt_multi_step(scene, opts, b, lsp, steps,
+                                             length_dist=ld)
+                m2(gen, banked0, torch.zeros(shape, device='cuda'), init)
+                _, t_u = timed(lambda: m2(gen, banked0, torch.zeros(
+                    shape, device='cuda'), init))
+            finally:
+                chain.cond_call = orig
+            uncond_ms = t_u / steps * 1e3
+    ms_e, ms_c = t_e / steps * 1e3, t_c2 / steps * 1e3
     log(f'{label}: eager {ms_e:.1f} ms an iteration, captured {ms_c:.1f} ms '
         f'an iteration (replays; n_done {int(n2)}), eager / captured '
         f'{ms_e / ms_c:.3f}; {C / ms_e * 1e3:.1f} vs {C / ms_c * 1e3:.1f} '
-        f'proposals/s; first call: eager {t_e1:.2f} s, multi-step (warm-up, '
-        f'capture, replays) {t_c1:.2f} s; peak device memory '
+        f'proposals/s; first call of the multi-step (warm-up, capture, '
+        f'replays) {t_c1:.2f} s; peak device memory '
         f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
     if int(n2) != steps:
         raise AssertionError(f'{label}: n_done {int(n2)} of {steps}')
-    if prefill:
-        full, part, Kc = unconditional_cost(scene, opts, want)
-        log(f'{label}: gradients now computed on every call: path_grad of '
-            f'all {C} lanes {full:.1f} ms + of {Kc} lanes {part:.1f} ms = '
-            f'{(full + part) / ms_c:.3f} of a captured iteration')
-    return dict(eager_ms=ms_e, captured_ms=ms_c)
+    if uncond_ms is not None:
+        log(f'{label}: with the gradient branches skipped (cond_call) '
+            f'{ms_c:.1f} ms a replayed iteration; with them computed and '
+            f'selected (unconditional) {uncond_ms:.1f} ms; '
+            f'{uncond_ms / ms_c:.3f}x')
+    return ms_e, ms_c
 
 
 def free_port():
@@ -1632,7 +1691,7 @@ def main():
     xml_f = write_flagship(os.path.join(OUT, 'open_motion'), scene='open',
                            motion=True)
     xml_f_cut = write_flagship(os.path.join(OUT, 'open_motion_cut'),
-                               num_init_samples=PATH_F_INIT_SAMPLES,
+                               num_init_samples=PATH_F_PARITY_INIT_SAMPLES,
                                scene='open', motion=True)
     xml_g = write_flagship(os.path.join(OUT, 'flagship_iso'), kernel='iso')
     small_motion = testscenes.write_scene(
@@ -1661,16 +1720,23 @@ def main():
     check_generation(small_motion)
     check_subpath_generation(small_lc)
 
+    ms = {}     # per path: (eager, captured) ms an iteration, graph phases
+
+    def parity(path, xml_p, **kw):
+        ms[path] = graph_parity(f'graph phase, path {path} configuration',
+                                xml_p, steps=PARITY_STEPS[path], **kw)
+        torch.cuda.empty_cache()
+
     res_a, launch_a = render('path A (MALA)', xml, {})
     rate_a = chain_rate('path A (MALA)', res_a)
-    graph_parity('graph phase, path A configuration', xml)
-    torch.cuda.empty_cache()
+    parity('A', xml)
     res_b, launch_b = render('path B (H2MC)', xml_h2mc,
                              {'LMCMC_ISECT_BACKEND': 'pallas'},
                              num_steps=PATH_B_STEPS)
     rate_b = chain_rate('path B (H2MC)', res_b)
     log(f'H2MC/MALA cost ratio (chain-loop proposals/s, same tuning, same '
         f'card): {rate_a / rate_b:.3f}')
+    parity('B', xml_h2mc, env={'LMCMC_ISECT_BACKEND': 'pallas'})
     _, launch_c = render('path C (MC)', xml_mc,
                          {'LMC_CW_VMEM_BYTES': str(RESIDENT_BYTES)})
     res_d, launch_d = render('path D (MALA, open scene)', xml_open, {},
@@ -1678,6 +1744,7 @@ def main():
     rate_d = chain_rate('path D (MALA, open scene)', res_d)
     log(f'path D / path A chain-loop proposals/s (same call): '
         f'{rate_d:.1f} / {rate_a:.1f} = {rate_d / rate_a:.3f}')
+    parity('D', xml_open)
     lc_counter = count_light_coords()
     res_e, launch_e = render('path E (MALA, multiplexed + cache + light '
                              'coordinates)', xml_e, {})
@@ -1685,9 +1752,7 @@ def main():
     large_step_line('path E', res_e, lc_counter)
     log(f'path E / path A chain-loop proposals/s (same call): '
         f'{rate_e:.1f} / {rate_a:.1f} = {rate_e / rate_a:.3f}')
-    graph_parity('graph phase, path E configuration (cache pre-filled)',
-                 xml_e, prefill=True)
-    torch.cuda.empty_cache()
+    parity('E', xml_e, prefill=True)
     path_h(xml_e, rate_e)
 
     scene, _, _ = parse_scene(xml_f, device='cuda')
@@ -1699,19 +1764,20 @@ def main():
     del scene
     with BruteForceCounter() as bf:
         res_f, launch_f = render('path F (MALA, moving open scene)',
-                                 xml_f_cut, {}, sky=True,
-                                 num_steps=PATH_F_STEPS)
+                                 xml_f, {}, sky=True)
     rate_f = chain_rate('path F (MALA, moving open scene)', res_f)
     tm = res_f['timings']
     it_ms = tm['loop_s'] / tm['steps'] * 1e3
     log(f'path F: {bf.calls} brute-force queries issued from the host '
         f'({bf.rays} rays; those outside the capture: {bf.live} live rays, '
         f'{bf.seconds:.2f} s host clock, synchronised), each captured one '
-        f'rerun by every replay; one 65,536-ray query = '
-        f'{ms_c / it_ms:.4f} (closest) / {ms_a / it_ms:.4f} (any) of an '
-        f'iteration ({it_ms:.1f} ms, capture included)')
+        f'an eager call between graphs, rerun by every replay; one '
+        f'65,536-ray query = {ms_c / it_ms:.4f} (closest) / '
+        f'{ms_a / it_ms:.4f} (any) of an iteration ({it_ms:.1f} ms, warm-up '
+        f'and capture included)')
     log(f'path F / path D chain-loop proposals/s (same call): '
         f'{rate_f:.1f} / {rate_d:.1f} = {rate_f / rate_d:.4f}')
+    parity('F', xml_f_cut)
     if bf.calls <= 0 or any(launch_f.values()):
         raise AssertionError(f'path F: {bf.calls} brute-force queries, walk '
                              f'kernel launches {launch_f}: a moving scene '
@@ -1720,7 +1786,12 @@ def main():
     rate_g = chain_rate('path G (isotropic-only chain)', res_g)
     log(f'path G / path A chain-loop proposals/s (same call): '
         f'{rate_g:.1f} / {rate_a:.1f} = {rate_g / rate_a:.3f}')
+    parity('G', xml_g)
     launch_i = path_i(xml_f, rate_f, rate_d)
+    parity('I', xml_f, bvh=True)
+    log('eager / captured ms an iteration, graph phases (same call): '
+        + '; '.join(f'{k} {e:.1f} / {c:.1f} = {e / c:.3f}'
+                    for k, (e, c) in ms.items()))
     for (key, _), row in bvh_rows.items():
         row['launches'] = launch_i[key]
     for key in ('split_closest_hit', 'split_any_hit'):

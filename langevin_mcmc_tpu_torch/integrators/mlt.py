@@ -558,7 +558,7 @@ class _MultiStep:
             st = self._static = dict(
                 banked=tree_map(torch.clone, banked), film=film.clone(),
                 init=tree_map(torch.clone, init_banked), init_src=init_banked,
-                gen=gen, graphs=StepGraphs(self._device, [gen], self._pool))
+                gen=gen, graphs=StepGraphs(self._device, gen, self._pool))
             it = 1
         else:
             if gen is not st['gen']:
@@ -610,7 +610,9 @@ def render_mlt(scene, opts, generator, num_steps=None, progress=False,
     and the large-step lane counts of the steps (make_mlt_step's
     step.counts) and, with a cache, the rows that filled
     ('cache_rows_ready'); on the card also the captured graphs a step
-    ('graphs'), the eager calls between them ('eager_calls'), their nodes
+    ('graphs'), the eager calls between them ('eager_calls'), the
+    cond_call branches ('branches') and how often they ran and were
+    skipped ('branch_runs', 'branch_skips'), their nodes
     ('graph_nodes'), the capture and instantiate seconds of every step
     ('capture_s', 'instantiate_s') and the seconds of the warm-up
     iterations ('warmup_s', 'warmups' of them) and of the iterations that
@@ -700,8 +702,9 @@ def render_mlt(scene, opts, generator, num_steps=None, progress=False,
 def graph_stats(multis):
     """The captured graphs of multi-steps (make_mlt_multi_step) as
     render_mlt's timings report them: graphs, eager calls between them
-    (and their functions' names) and nodes of one step (the first
-    captured); the capture and instantiate seconds, the warm-ups and
+    (and their functions' names), cond_call branches and nodes of one
+    step (the first captured); the branches' runs and skips, the
+    capture and instantiate seconds, the warm-ups and
     their seconds and the seconds of the capturing iterations of all of
     them. Empty when none was captured."""
     ms = list({id(m): m for m in multis}.values())
@@ -713,8 +716,11 @@ def graph_stats(multis):
                 warmup_s=sum(m.warmup_s for m in ms),
                 capture_pass_s=sum(m.capture_pass_s for m in ms),
                 graphs=len(g.graphs), eager_calls=len(g.calls),
-                eager_fns=[f'{fn.__module__}.{fn.__qualname__}'
-                           for fn, _, _ in g.calls],
+                eager_fns=sorted({f'{fn.__module__}.{fn.__qualname__}'
+                                  for fn, _, _ in g.calls}),
+                branches=len(g.branches),
+                branch_runs=sum(x.branch_runs for x in caught),
+                branch_skips=sum(x.branch_skips for x in caught),
                 graph_nodes=sum(g.nodes),
                 capture_s=sum(x.capture_s for x in caught),
                 instantiate_s=sum(x.instantiate_s for x in caught))

@@ -12,6 +12,7 @@ import dataclasses
 
 import torch
 
+from ..ops.graphs import cond_call
 from ..path import trace, replay
 from ..path.records import (PathRecord, to_subpath, get_path_pss, pss_dim,
                             slot_tables_on)
@@ -299,13 +300,14 @@ def _bake(scene, opts, rec):
     return None if scene.has_motion else replay.bake_frozen(scene, opts, rec)
 
 
-def _perturb_and_grad(scene, opts, rec, offset, noise, grad_mask,
+def _perturb_and_grad(scene, opts, rec, offset, noise, grad_mask=None,
                       want_hess=False):
     """Perturb replay (collecting the frozen-path bake on a static scene) +
     the gradient at the proposal (and its dense Hessian when want_hess:
-    H2MC), zeros when no lane consumes it (grad_mask [C] bool), as the JAX
-    package's lax.cond gives: computed on every call and selected on the
-    device, with no host read.
+    H2MC, whose every lane consumes both). grad_mask [C] bool: the lanes
+    that consume the gradient; where none does it is zeros, as the JAX
+    package's lax.cond gives (ops/graphs.cond_call: selected on the
+    device, and skipped by a captured step).
     Returns (new_rec, res, grad [C, Dm], hess [C, Dm, Dm] or None)."""
     if scene.has_motion:
         new_rec, res = replay.replay_path(scene, opts, rec, offset, noise,
@@ -317,13 +319,11 @@ def _perturb_and_grad(scene, opts, rec, offset, noise, grad_mask,
             collect_bake=True)
     if want_hess:
         grad, hess = replay.path_grad_hessian(scene, opts, new_rec, bake=bake)
-    else:
-        grad, hess = replay.path_grad(scene, opts, new_rec, bake=bake), None
-    used = grad_mask.any()
-    grad = torch.where(used, grad, torch.zeros_like(grad))
-    if hess is not None:
-        hess = torch.where(used, hess, torch.zeros_like(hess))
-    return new_rec, res, grad, hess
+        return new_rec, res, grad, hess
+    grad = cond_call(grad_mask.any(),
+                     lambda r, b: replay.path_grad(scene, opts, r, bake=b),
+                     new_rec, bake)
+    return new_rec, res, grad, None
 
 
 def _mala_iso(C, Dm, opts, device):
@@ -391,13 +391,15 @@ def small_step_mala(scene, opts, state: ChainState, z, noise, cache,
         # with no lane in need this gives zeros and no lane covered, what
         # the JAX package's lax.cond gives
         zeros = torch.zeros((C, Dm), device=dev)
+        flag = cur_need.any()
         if Kc >= C:
-            grad = grad_with_bake(state.rec)
+            grad = cond_call(flag, grad_with_bake, state.rec)
             return torch.where(cur_need[:, None], grad, zeros), cur_need
         order = torch.argsort(torch.where(cur_need, 0, 1), stable=True)
         sel = order[:Kc]
         grad = zeros.clone()
-        grad[sel] = grad_with_bake(tree_take(state.rec, sel))
+        grad[sel] = cond_call(flag, grad_with_bake,
+                              tree_take(state.rec, sel))
         covered = torch.zeros_like(cur_need).index_fill_(0, sel, True)
         covered &= cur_need
         return torch.where(covered[:, None], grad, zeros), covered
@@ -599,8 +601,7 @@ def small_step_h2mc(scene, opts, state: ChainState, z, noise, use_iso=None,
 
     offset = G.gaussian_sample(gauss_cur, z)
     new_rec, res, g_p, h_p = _perturb_and_grad(
-        scene, opts, state.rec, offset, noise,
-        torch.ones(C, dtype=torch.bool, device=dev), want_hess=True)
+        scene, opts, state.rec, offset, noise, want_hess=True)
     ok = res['valid'] & (res['ss_score'] > 0.0)
     gauss_prop = h2mc_gauss(g_p, h_p, res['ss_score'])
     if use_iso is not None:

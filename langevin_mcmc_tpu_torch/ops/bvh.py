@@ -44,13 +44,14 @@ import numpy as np
 import torch
 
 from . import cuda_build
+from .graphs import launch_counter
 
 MAX_LEAF = 4
 N_BUCKETS = 12
 STACK_DEPTH = 64
 
 # launches of the CUDA kernel, per variant; the plain version never counts
-launch_counts = {'closest_hit': 0, 'any_hit': 0}
+launch_counts = launch_counter(('closest_hit', 'any_hit'))
 
 
 def reset_launch_counts():

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from . import cuda_build
+from .graphs import launch_counter
 
 RAY_BLOCK = 256
 TRI_CHUNK = 128
@@ -42,8 +43,8 @@ SPLIT_CTAS = 8192
 MAX_RANGE = 1024
 
 # launches of the CUDA kernels, per variant; the plain version never counts
-launch_counts = {'split_closest_hit': 0, 'split_any_hit': 0,
-                 'closest_hit_resident': 0, 'any_hit_resident': 0}
+launch_counts = launch_counter(('split_closest_hit', 'split_any_hit',
+                                'closest_hit_resident', 'any_hit_resident'))
 
 
 def use_resident(pack):

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..utils import vecmath as vm
+from .graphs import eager_call
 
 TRI_CHUNK = 1024
 # ray-triangle pairs one block of the brute force holds: a moving scene
@@ -60,15 +61,31 @@ def intersect_bruteforce(scene, org, d, time, min_t, max_t):
     """Closest hit over all triangles. org/d [R,3]; time, min_t, max_t [R].
     Returns (hit, tri_id, t, u, v). A hit is the smallest t; a tie goes to
     the first triangle within a chunk of TRI_CHUNK and to the earlier chunk
-    across chunks. Every ray is tested (a dead one, max_t < min_t, hits
-    nothing), in fixed blocks of PAIR_BLOCK // TRI_CHUNK rays, as the JAX
-    package tests every ray: the shapes do not depend on the data."""
+    across chunks. Only live rays (max_t >= min_t: no other can hit) are
+    tested, gathered on the host into blocks of PAIR_BLOCK // TRI_CHUNK
+    rays, so a captured step runs the query between its graphs
+    (ops/graphs.eager_call), again at every replay. Like the kernel
+    backends, the query is not differentiated."""
+    return eager_call(_bruteforce_live, scene, org.detach(), d.detach(),
+                      time.detach(), min_t.detach(), max_t.detach())
+
+
+def _bruteforce_live(scene, org, d, time, min_t, max_t):
+    R = org.shape[0]
+    dev = org.device
+    best_t = torch.full((R,), float('inf'), device=dev)
+    best_id = torch.zeros(R, dtype=torch.int32, device=dev)
+    best_u = torch.zeros(R, device=dev)
+    best_v = torch.zeros(R, device=dev)
+    live = torch.nonzero(max_t >= min_t)[:, 0]
     rb = max(PAIR_BLOCK // TRI_CHUNK, 1)
-    parts = [_bruteforce_block(scene, org[r0:r0 + rb], d[r0:r0 + rb],
-                               time[r0:r0 + rb], min_t[r0:r0 + rb],
-                               max_t[r0:r0 + rb])
-             for r0 in range(0, max(org.shape[0], 1), rb)]
-    best_t, best_id, best_u, best_v = (torch.cat(x) for x in zip(*parts))
+    with torch.no_grad():
+        for r0 in range(0, live.numel(), rb):
+            lanes = live[r0:r0 + rb]
+            out = _bruteforce_block(scene, org[lanes], d[lanes], time[lanes],
+                                    min_t[lanes], max_t[lanes])
+            for full, part in zip((best_t, best_id, best_u, best_v), out):
+                full[lanes] = part
     hit = torch.isfinite(best_t)
     return hit, best_id, torch.where(hit, best_t, torch.zeros_like(best_t)), \
         best_u, best_v

@@ -223,8 +223,8 @@ def render_mlt_multihost(scene, opts, seed, num_steps=None, chunk=4096,
     iterations done: the calls' n_done summed), 'calls', 'n_inner',
     this process's step counts and 'cache_rows_ready' as render_mlt fills
     them, the captured graphs of its first group's steps (render_mlt's
-    'graphs', 'eager_calls', 'graph_nodes', 'capture_s',
-    'instantiate_s'), and
+    'graphs', 'eager_calls', 'branches', 'branch_runs', 'branch_skips',
+    'graph_nodes', 'capture_s', 'instantiate_s'), and
     'merges', 'merge_s' (inside loop_s), 'merge_bytes' (the gathered
     caches a merge brings to each rank), 'reduce_s' (the film reduce),
     'world' and 'shards'.

@@ -249,13 +249,17 @@ def captured(scene, opts, b, length_dist, gen, banked, frame, init):
     dev = sum(e.self_device_time_total for e in events) / 1e3 / STEPS
     g = multi.graphs
     out = dict(graphs=len(g.graphs), eager_calls=len(g.calls),
+               branches=len(g.branches), branch_runs=g.branch_runs,
+               branch_skips=g.branch_skips,
                graph_nodes=sum(g.nodes), replay_ms=replay_ms,
                n_done=int(n_done), window_ms=window, device_ms=dev,
                busy_share=dev / replay_ms,
                kernels_per_step=sum(e.count for e in events) / STEPS,
                capture_s=g.capture_s, instantiate_s=g.instantiate_s)
     print(f'captured step: {out["graphs"]} graph(s), {out["eager_calls"]} '
-          f'eager call(s), {out["graph_nodes"]} nodes; {replay_ms:.1f} ms '
+          f'eager call(s), {out["branches"]} cond_call branch(es) (ran '
+          f'{g.branch_runs}, skipped {g.branch_skips}), '
+          f'{out["graph_nodes"]} nodes; {replay_ms:.1f} ms '
           f'an iteration (synchronised, replays; n_done {int(n_done)} of '
           f'{STEPS}); profiled: {window:.1f} ms an iteration, {dev:.1f} ms '
           f'device kernel time = busy share {out["busy_share"]:.3f}, '

@@ -16,6 +16,9 @@ render loops' n_inner schedule, against the JAX package.
   test_torch_mcmc's) at the tolerances of those files, and
   intersect_bruteforce with dead rays mixed in (hits and ids exactly,
   t, u, v at rtol 1e-5);
+* ops/graphs: cond_call outside a capture is lax.cond (the branch bit for
+  bit, or zeros), and every kernel wrapper's launch counts are in the
+  registry that StepGraphs keeps counting under replay;
 * on the CPU the multi-step equals n_inner calls of make_mlt_step bit for
   bit (chain state, film, counts) with n_done == n_inner, and a MALA step
   reads nothing back to the host from mcmc/chain.py or
@@ -398,6 +401,51 @@ def test_bruteforce_with_dead_rays_matches_jax():
                                        atol=1e-6, err_msg=name)
     dead = mx < mn
     assert not to_np(got[0])[dead].any() and to_np(got[0])[~dead].sum() > 100
+
+
+@pytest.mark.parametrize('flag', [True, False])
+def test_cond_call_outside_capture_is_lax_cond(flag):
+    """Outside a capture cond_call runs the branch and selects on the
+    device: the branch's results bit for bit (NaN and -0.0 included) when
+    the flag is true, zeros when it is false, as lax.cond gives; a tuple
+    stays a tuple."""
+    from langevin_mcmc_tpu_torch.ops.graphs import cond_call
+    x = torch.tensor([1.5, float('nan'), -0.0, 3.0])
+    calls = []
+
+    def branch(a, b):
+        calls.append(1)
+        return a * 2.0, (b + 1).to(torch.int32)
+    got = cond_call(torch.tensor(flag), branch, x, torch.arange(4))
+    assert isinstance(got, tuple) and len(calls) == 1
+    if flag:
+        assert torch.equal(got[0].view(torch.int32),
+                           (x * 2.0).view(torch.int32))
+        assert torch.equal(got[1], torch.arange(1, 5, dtype=torch.int32))
+    else:
+        assert torch.equal(got[0].view(torch.int32),
+                           torch.zeros(4).view(torch.int32))
+        assert got[1].dtype == torch.int32 and not got[1].any()
+    single = cond_call(torch.tensor(flag), lambda a: a + 1.0, x)
+    assert isinstance(single, torch.Tensor)
+    assert torch.equal(single.view(torch.int32),
+                       (x + 1.0 if flag else torch.zeros(4))
+                       .view(torch.int32))
+
+
+def test_kernel_launch_counters_are_registered():
+    """Every kernel wrapper's launch counts live in the one registry that
+    StepGraphs keeps counting under replay."""
+    from langevin_mcmc_tpu_torch.ops import bvh, chunkwalk, graphs
+    from langevin_mcmc_tpu_torch.ops import sweep_isect
+    registered = [id(c) for c in graphs._counters]
+    for m in (chunkwalk, sweep_isect, bvh):
+        assert id(m.launch_counts) in registered
+        m.reset_launch_counts()
+        assert id(m.launch_counts) in registered
+    assert sorted(chunkwalk.launch_counts) == [
+        'any_hit_resident', 'closest_hit_resident', 'split_any_hit',
+        'split_closest_hit']
 
 
 # ---------------------------------------------------------------------------
