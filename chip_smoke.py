@@ -24,6 +24,13 @@ Phases (any failure exits non-zero before the last line is printed):
        and again at the large step's; and the sweep's t against the chunk
        walk's on every hit (the ids may differ only on exact ties of t,
        which are counted);
+     - the matmul sweep (LMCMC_ISECT_BACKEND=matmul, intersect_matmul and
+       occluded_matmul: torch.matmul, no kernel) on K1's 65,536 rays
+       against the chunk walk's whole query: hit sets and ids equal but on
+       shared edges and exact ties of t (counted; at most 0.5% of the
+       hits), t within rtol 1e-4 / atol 5e-4, each query captured in a
+       CUDA graph and replayed equal to its eager call; its ms beside
+       K1-K4's;
   4. on the generated open scene (the same torus, now a rough dielectric,
      on a textured floor beside a textured Phong sphere, lit by an env map
      with a sun, a point light and the quad area light; no walls, so rays
@@ -43,7 +50,20 @@ Phases (any failure exits non-zero before the last line is printed):
      percentile, max), the divergence (the mean over warps of the most
      loop steps of a lane over the warp's mean) and its bound; beside
      K1/K2 on the same static rays (kernel alone and whole query) and the
-     motion brute force on the same moving rays;
+     brute-force kernel on the same moving rays;
+  5b. the brute-force kernel (ops/intersect.py brute_force, csrc/brute.cu):
+     ptxas's registers, stack, spills and shared memory of each
+     instantiation; closest and any hit against the plain version
+     (_bruteforce_block over the live rays) bit for bit on path F's moving
+     scene at 65,536 rays (motion_rays: half camera rays, half from
+     surface points at the ray's time, 30% of those dead) and the large
+     step's 4,260, with its time, the plain version's (one run) and its
+     bound (the tests this run needs: every live ray against every
+     triangle for the closest hit, up to each ray's first hit in each
+     triangle range for the any hit); the triangle ranges S swept at both
+     ray counts, each checked equal; the plain version's PAIR_BLOCK at
+     three sizes, each equal; and the static box with
+     LMCMC_ISECT_BACKEND=brute on K1's rays;
   6. a one-rank NCCL process group on the card: global_sum, the cache
      merger (its all-gather of CUDA tensors) against merge_stacked on the
      CPU bit for bit, and the film all-reduce, each timed;
@@ -102,16 +122,13 @@ Phases (any failure exits non-zero before the last line is printed):
  15. path F, path D's configuration with --motion (the torus and the quad
      light turn and move between two keyframes, the camera pans, the env
      map turns), through the CLI (--spp 1, 12 iterations): every ray
-     query is the motion brute force in torch (no kernel), which gathers
-     its live rays on the host, so a captured step runs each query
-     between two graphs (ops/graphs.eager_call); the frozen replay and
-     path_grad run without a bake. Its graph phase bootstraps 65,536
-     samples (PATH_F_PARITY_INIT_SAMPLES). Before
-     it, one brute-force closest-hit and one any-hit query at 65,536 rays
-     on that scene, timed by CUDA events (the closest hit also at blocks
-     of 2^20, 2^22 and 2^24 ray-triangle pairs, each checked equal); after
-     it, their share of path F's iteration and the brute force's
-     host-clock share of the render; no walk kernel may launch;
+     query is the brute-force kernel, captured in the step's graphs, so
+     the step has no eager call and as many graphs as path D's; the
+     frozen replay and path_grad run without a bake. It prints its
+     replays' ms and proposals/s over path D's in this call and beside
+     PR 10's torch brute force (PERF.md, another call); it fails unless
+     both variants of the kernel launched, no walk kernel did, and its
+     graphs a step equal path D's;
  16. path G, path A's configuration with neither mala nor h2mc: the
      isotropic-only chain through K1/K2;
  17. path I, path F's configuration with a BVH attached, through the API
@@ -125,8 +142,7 @@ make_mlt_multi_step (integrators/mlt.py): CUDA graphs of the chain step
 on the card, n_inner iterations a call on the JAX package's schedule. Per
 path it prints the graphs a step and the eager calls between them (named:
 H2MC's torch.linalg.eigh reads its error flags on the host, so path B's
-step is split around two eigh calls; path F's around every brute-force
-query), the cond_call branches (MALA's two gradients) and how often they
+step is split around two eigh calls), the cond_call branches (MALA's two gradients) and how often they
 ran, their nodes, the capture and instantiate seconds, and n_done
 against the iterations scheduled, which must be equal. The render's
 first iteration (eager, lazy set-up included) is printed beside its
@@ -157,7 +173,13 @@ path I, and a bound from the work the plain version counts: 25 f32
 operations per ray-box test (two per inner node), 61 per Moller-Trumbore
 test (28 more for a moving triangle's lerp); also the work's spread and
 divergence, ptxas's report, pack_bvh's seconds and the large step's
-numbers (large_step).
+numbers (large_step). The brute-force rows (brute_{closest,any}_hit_
+motion, "pallas": false: the JAX brute force is an XLA scan) carry their
+launches on path F, a bound from the tests this run's rays need (61 f32
+operations a test, + 28 for the moving lerp), the triangle ranges S, the
+large step's numbers (large_step) and the static box's (static_box). The
+K1-K4 rows carry matmul_sweep_ms: one matmul-sweep query on their rays
+(several torch calls, not one library call).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -177,15 +199,14 @@ INIT_SAMPLES = 300000   # numinitsamples of the flagship render
 CHUNK = 32768           # wavefront of the bootstrap and direct passes
 RESIDENT_BYTES = 6291456  # LMC_CW_VMEM_BYTES of path C
 PATH_B_STEPS = 4        # path B's chain iterations (H2MC: ~15-21 s each)
-# graph phases' iterations: 8 on paths A and E; 3 on H2MC (path B) and the
-# moving brute force (path F), whose eager iterations take seconds; 4 on
-# the others. From the third on, an iteration is a replay.
-PARITY_STEPS = dict(A=8, B=3, D=4, E=8, F=3, G=4, I=4)
-# bootstrap samples of path F's graph phase (its render keeps 300,000)
-PATH_F_PARITY_INIT_SAMPLES = 65536
+# graph phases' iterations: 8 on paths A and E; 3 on H2MC (path B), whose
+# eager iterations take seconds; 4 on the others. From the third on, an
+# iteration is a replay.
+PARITY_STEPS = dict(A=8, B=3, D=4, E=8, F=4, G=4, I=4)
 OPS_PER_TEST = 40       # f32 operations of one ray-triangle test
 OPS_PER_SLAB = 25       # f32 operations of one ray-AABB slab test
 OPS_PER_MT = 61         # f32 operations of one Moller-Trumbore test
+OPS_PER_EDGES = 6       # of them, the edges e1 = p1 - p0, e2 = p2 - p0
 OPS_PER_LERP = 28       # f32 operations of one triangle's vertex lerp
 PEAK_F32 = 67e12        # H100 SXM f32 peak, FLOP/s
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3, bytes/s
@@ -521,7 +542,138 @@ def check_kernels(scene):
     ties = int((i1 != i4)[h1].sum())
     log(f'sweep vs chunk walk: {int(h1.sum())} hits, t equal bit for bit on '
         f'every hit, ids differ on {ties} exact ties of t')
+    matmul_check(scene, (org, d, z, mn, mx), rows)
     return rows
+
+
+def captured(fn):
+    """fn() (a tensor or a tuple of them) captured in a CUDA graph after
+    an eager warm-up on a side stream, its outputs zeroed, and replayed:
+    (the eager result, the replayed one)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        want = fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = fn()
+    as_tuple = lambda x: x if isinstance(x, tuple) else (x,)
+    for o in as_tuple(out):
+        o.zero_()
+    g.replay()
+    torch.cuda.synchronize()
+    return as_tuple(want), as_tuple(out)
+
+
+def matmul_differences(p, rays, hm, im, tm, h1, i1, t1):
+    """Sorts the rays on which the matmul sweep (hm, im, tm) and the chunk
+    walk (h1, i1, t1) differ, on triangles p [T, 3, 3], into what two
+    f32 arithmetics may rightly disagree on. An id differs on a shared
+    edge (or, at an equal t, a tie) if the matmul's triangle also passes
+    the test (moller_trumbore: u, v, 1 - u - v >= -1e-4) at the chunk
+    walk's t; on a crack if the nearer of the two triangles is hit on its
+    own edge (|min(u, v, 1 - u - v)| <= 1e-4: the other backend slipped
+    through it to a triangle behind); at an end of the ray if the nearer
+    hit's t is min_t or max_t to within rtol 1e-4 / atol 5e-4 (a ray that
+    leaves a surface meets it again near min_t, which one rounding keeps
+    and the other drops). A hit set differs on an edge or at an end in
+    the same way. Returns the counts; 'other' and 'hit_bad' are the
+    differences none of these explains."""
+    from langevin_mcmc_tpu_torch.ops import intersect
+    org, d, _, mn, mx = rays
+    eps = 1e-4
+
+    def bary(ids, lanes):
+        tp = p[ids[lanes].long()]
+        t, u, v, _ = intersect.moller_trumbore(
+            org[lanes], d[lanes], tp[:, 0], tp[:, 1] - tp[:, 0],
+            tp[:, 2] - tp[:, 0])
+        return t, torch.stack([u, v, 1.0 - u - v], 1).amin(1)
+
+    def at_end(t, lanes):
+        return (torch.isclose(t, mn[lanes], rtol=1e-4, atol=5e-4)
+                | torch.isclose(t, mx[lanes], rtol=1e-4, atol=5e-4))
+
+    lanes = torch.nonzero(hm & h1 & (im != i1))[:, 0]
+    t_m, inside = bary(im, lanes)
+    on_edge = (inside >= -eps) & torch.isclose(t_m, t1[lanes], rtol=1e-4,
+                                               atol=5e-4)
+    ties = int((on_edge & (tm[lanes] == t1[lanes])).sum())
+    _, inside = bary(torch.where(tm < t1, im, i1), lanes)
+    crack = ~on_edge & (inside.abs() <= eps)
+    end = ~on_edge & ~crack & at_end(torch.minimum(tm, t1)[lanes], lanes)
+    out = dict(ties=ties, edges=int(on_edge.sum()) - ties,
+               cracks=int(crack.sum()), ends=int(end.sum()),
+               other=int((~on_edge & ~crack & ~end).sum()))
+    lanes = torch.nonzero(hm != h1)[:, 0]
+    _, inside = bary(torch.where(hm, im, i1), lanes)
+    explained = (inside.abs() <= eps) | at_end(
+        torch.where(hm, tm, t1)[lanes], lanes)
+    out.update(hit_diff=int(lanes.numel()), hit_bad=int((~explained).sum()))
+    return out
+
+
+def matmul_check(scene, rays, rows):
+    """One intersect_matmul and one occluded_matmul query (the matmul
+    sweep, LMCMC_ISECT_BACKEND=matmul: torch.matmul, no kernel) on K1's
+    65,536 rays of the box, against the chunk walk's whole query (K1/K2):
+    hit sets and ids equal but where matmul_differences explains the
+    difference (each kind counted; together at most 0.5% of the hits, the
+    bound of tests/test_torch_intersect.py against the brute force), t
+    within rtol 1e-4 / atol 5e-4 where both hit the same triangle (that
+    test's tolerance of the Woop arithmetic), occluded equal to the closest
+    hit's hit set; each query captured in a CUDA graph and replayed equals
+    its eager call (no host read). Times both with CUDA events beside
+    K1-K4 and the chunk walk's whole query, and adds matmul_sweep_ms to
+    the K1-K4 rows (the closest hit's to closest-hit rows, the any hit's
+    to any-hit rows)."""
+    from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
+    from langevin_mcmc_tpu_torch.ops import intersect
+    hm, im, tm, _, _ = intersect.intersect_matmul(scene, *rays)
+    om = intersect.occluded_matmul(scene, *rays)
+    h1, i1, t1, _, _ = cw.intersect_chunkwalk(scene, *rays)
+    torch.cuda.synchronize()
+    same = hm & h1 & (im == i1)
+    diff = matmul_differences(scene.tri_p[0], rays, hm, im, tm, h1, i1, t1)
+    ties, edges, cracks, ends, id_bad, hit_diff, hit_bad = (
+        diff[key] for key in ('ties', 'edges', 'cracks', 'ends', 'other',
+                              'hit_diff', 'hit_bad'))
+    t_ok = torch.isclose(tm[same], t1[same], rtol=1e-4, atol=5e-4)
+    t_err = float((tm[same] - t1[same]).abs().max())
+    replay_equal = all(torch.equal(a, b) for fn in (
+        intersect.intersect_matmul, intersect.occluded_matmul)
+        for a, b in zip(*captured(lambda: fn(scene, *rays))))
+    torch.cuda.reset_peak_memory_stats()
+    ms_c = cuda_ms(lambda: intersect.intersect_matmul(scene, *rays), 3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms_a = cuda_ms(lambda: intersect.occluded_matmul(scene, *rays), 3)
+    q1 = cuda_ms(lambda: cw.intersect_chunkwalk(scene, *rays))
+    q2 = cuda_ms(lambda: cw.occluded_chunkwalk(scene, *rays))
+    k = {key: rows[key]['ms'] for key in rows}
+    log(f'matmul sweep, {rays[0].shape[0]} rays on the box: '
+        f'{int(hm.sum())} hits against the chunk walk\'s {int(h1.sum())}: '
+        f'hit sets differ on {hit_diff} rays ({hit_bad} neither on an edge '
+        f'nor at an end of the ray), ids on {edges} shared edges, {ties} '
+        f'exact ties of t, {cracks} cracks, {ends} ends of the ray and '
+        f'{id_bad} other rays; t within rtol 1e-4 / atol 5e-4 on '
+        f'{int(t_ok.sum())} of {int(same.sum())} (max |diff| {t_err:.3g}); '
+        f'occluded = hit set: {torch.equal(om, hm)}; captured replay = '
+        f'eager: {replay_equal}; closest {ms_c:.3f} ms, any {ms_a:.3f} ms '
+        f'(peak device memory {peak:.2f} GiB) beside K1 '
+        f'{k["split_closest_hit"]:.3f} / K2 {k["split_any_hit"]:.3f}, K3 '
+        f'{k["closest_hit_resident"]:.3f} / {k["any_hit_resident"]:.3f}, K4 '
+        f'{k["sweep_closest_hit"]:.3f} / {k["sweep_any_hit"]:.3f} ms '
+        f'(kernels alone) and the chunk walk\'s whole query {q1:.3f} / '
+        f'{q2:.3f} ms')
+    if (hit_diff + edges + ties + cracks + ends > 0.005 * int(h1.sum())
+            or hit_bad
+            or id_bad or not t_ok.all()
+            or not torch.equal(om, hm) or not replay_equal):
+        raise AssertionError('matmul sweep: disagrees with the chunk walk '
+                             'or its captured replay differs')
+    for key, row in rows.items():
+        row['matmul_sweep_ms'] = ms_a if 'any' in key else ms_c
 
 
 def far_rays(scene, n, seed):
@@ -719,79 +871,221 @@ def motion_rays(scene, n, seed):
             torch.cat([mx0, mx1]))
 
 
-def motion_queries(scene):
-    """One brute-force closest-hit and one any-hit query at 65,536 rays on
-    the moving scene (motion_rays), CUDA-event ms, then the closest hit at
-    three block sizes. Returns (closest ms, any ms) at the default."""
+def brute_any_tests(scene, rays):
+    """Ray-triangle tests an any-hit query needs on these rays, whatever
+    the kernel: each live ray tests up to and including its first valid
+    triangle in id order, or every triangle where none is (the plain
+    version's arithmetic, chunk by chunk, 4,096 rays at a time). The
+    kernel's S triangle ranges each test up to their own first valid
+    triangle; those extra tests are its design's, not the function's."""
     from langevin_mcmc_tpu_torch.ops import intersect
-    rays = motion_rays(scene, 65536, seed=23)
-    live = int((rays[4] >= rays[3]).sum())
-    hit = intersect.intersect_bruteforce(scene, *rays)[0]
-    ms_c = cuda_ms(lambda: intersect.intersect_bruteforce(scene, *rays), 3)
-    ms_a = cuda_ms(lambda: intersect.occluded_bruteforce(scene, *rays), 3)
-    pairs = live * scene.num_tris
-    log(f'motion brute force, 65,536 rays ({live} live, {int(hit.sum())} '
-        f'hit) x {scene.num_tris} triangles: closest hit {ms_c:.1f} ms, any '
-        f'hit {ms_a:.1f} ms (CUDA events); {pairs:.4g} ray-triangle pairs, '
-        f'{pairs / ms_c / 1e6:.3f} Gpairs/s')
-    if not hit.any():
-        raise AssertionError('motion brute force: no ray hit')
-    # the block of ray-triangle pairs, each size first checked equal to
-    # the default
-    want = intersect.intersect_bruteforce(scene, *rays)
+    from langevin_mcmc_tpu_torch.utils import vecmath as vm
+    org, d, tm, mn, mx = rays
+    T = scene.num_tris
+    live = torch.nonzero(mx >= mn)[:, 0]
+    total = 0
+    for r0 in range(0, live.numel(), 4096):
+        lanes = live[r0:r0 + 4096]
+        o, dd = org[lanes, None], d[lanes, None]
+        first = torch.full((lanes.numel(),), T, device=org.device)
+        for start in range(0, T, intersect.TRI_CHUNK):
+            end = min(start + intersect.TRI_CHUNK, T)
+            if scene.has_motion:
+                tp = vm.lerp(tm[lanes, None, None, None],
+                             scene.tri_p[0, None, start:end],
+                             scene.tri_p[1, None, start:end])
+            else:
+                tp = scene.tri_p[0, None, start:end]
+            p0 = tp[..., 0, :]
+            t, u, v, div = intersect.tri_test_ordered(
+                o, dd, p0, tp[..., 1, :] - p0, tp[..., 2, :] - p0)
+            ok = ((div != 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+                  & (t >= mn[lanes, None]) & (t <= mx[lanes, None])
+                  & torch.isfinite(t))
+            ids = torch.arange(start, end, device=org.device)
+            first = torch.minimum(
+                first, torch.where(ok, ids, torch.full_like(ids, T)).amin(1))
+        total += int(torch.where(first < T, first + 1, T).sum())
+    return total
+
+
+def brute_row(name, scene, rays, any_hit):
+    """The brute-force kernel (csrc/brute.cu) on these rays against its
+    plain version (_bruteforce_block over the live rays) bit for bit,
+    timed (one call, and back to back), the plain version's time (one run
+    between CUDA events: it gathers the live rays on the host), and the
+    bound: ray-triangle tests (live rays x triangles for the closest hit,
+    brute_any_tests for the any hit) x f32 operations a test (55 on a
+    static scene, whose edges both versions compute once a tile or chunk;
+    61 + 28 on a moving one, which lerps the vertices and takes the edges
+    per test) over 67 TFLOP/s, or the bytes (triangles and rays read once,
+    outputs written once) over 3.35 TB/s. Returns the row of the kernels
+    JSON line."""
+    from langevin_mcmc_tpu_torch.ops import intersect
+    org, d, tm, mn, mx = rays
+    kernel = lambda: intersect.brute_force(scene, *rays, any_hit=any_hit)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    want = intersect._bruteforce_live(scene, *rays)
+    ev[1].record()
+    got = kernel()
+    torch.cuda.synchronize()
+    plain_ms = ev[0].elapsed_time(ev[1])
+    if any_hit:
+        if not torch.equal(got, torch.isfinite(want[0])):
+            raise AssertionError(f'{name}: occlusion differs on '
+                                 f'{(got != torch.isfinite(want[0])).sum()}'
+                                 f' rays')
+    else:
+        for a, b, f in zip(got, want, 'tiuv'):
+            if not torch.equal(a, b):
+                raise AssertionError(f'{name}: {f} differs on '
+                                     f'{(a != b).sum().item()} rays')
+    ms = cuda_ms(kernel)
+    ms_launches = cuda_ms_launches(kernel)
+    R, T = org.shape[0], scene.num_tris
+    live = int((mx >= mn).sum())
+    S = intersect.brute_splits(R, T)
+    tests = brute_any_tests(scene, rays) if any_hit else live * T
+    ops = tests * (OPS_PER_MT + OPS_PER_LERP if scene.has_motion
+                   else OPS_PER_MT - OPS_PER_EDGES)
+    in_bytes = nbytes(scene.tri_p) // (1 if scene.has_motion else 2) + \
+        nbytes(org, d, mn, mx) + (nbytes(tm) if scene.has_motion else 0)
+    ops_ms = ops / PEAK_F32 * 1e3
+    bytes_ms = (in_bytes + R * (1 if any_hit else 16)) / PEAK_BYTES * 1e3
+    bound_ms, bound_by = (ops_ms, 'operations') if ops_ms >= bytes_ms \
+        else (bytes_ms, 'bytes')
+    hits = int((got if any_hit else torch.isfinite(got[0])).sum())
+    log(f'{name}, {R} rays ({live} live, {hits} hit) x {T} triangles, S = '
+        f'{S}: equal to the plain version; kernel {ms:.3f} ms (back to back '
+        f'{ms_launches:.3f} ms), plain {plain_ms:.1f} ms; the function needs '
+        f'{tests:.4g} ray-triangle tests, {tests / ms / 1e6:.1f} G of them '
+        f'a second; bound '
+        f'{bound_ms:.3f} ms ({bound_by}), kernel / bound '
+        f'{ms / bound_ms:.2f}')
+    return dict(name=name, route='cuda',
+                source='langevin_mcmc_tpu_torch/csrc/brute.cu',
+                replaces='langevin_mcmc_tpu/ops/intersect.py:'
+                + ('109' if any_hit else '59'), pallas=False,
+                max_abs_err=0.0, ms=ms, ms_launches=ms_launches,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, rays=R, live=live, tests=tests, splits=S)
+
+
+def brute_splits_table(label, scene, rays):
+    """The brute-force kernel at several triangle ranges S (the default
+    marked), each first checked equal to the default."""
+    from langevin_mcmc_tpu_torch.ops import intersect
+    R, T = rays[0].shape[0], scene.num_tris
+    S0 = intersect.brute_splits(R, T)
+    tiles = -(-T // intersect.BRUTE_RAYS)
+    as_tuple = lambda x: x if isinstance(x, tuple) else (x,)
+    ref = [as_tuple(intersect.brute_force(scene, *rays, any_hit=a))
+           for a in (False, True)]
+    for S in sorted({1, 2, 4, 8, 16, 32, 64, S0, tiles}):
+        row = []
+        for a in (False, True):
+            fn = lambda: intersect.brute_force(scene, *rays, any_hit=a,
+                                               splits=S)
+            if not all(torch.equal(x, y)
+                       for x, y in zip(as_tuple(fn()), ref[a])):
+                raise AssertionError(f'{label}: S={S} changes the answer')
+            row.append(cuda_ms(fn))
+        log(f'  {label}, {R} rays, S={S}{" (default)" if S == S0 else ""}, '
+            f'{-(-R // intersect.BRUTE_RAYS) * S} CTAs: closest '
+            f'{row[0]:.3f} ms, any {row[1]:.3f} ms')
+
+
+def brute_phase(xml, xml_f):
+    """The brute-force kernel (csrc/brute.cu): ptxas's registers, stack,
+    spills and shared memory of each instantiation; on the moving open
+    scene (motion_rays) at 65,536 and the large step's 4,260 rays, closest
+    and any hit against the plain version bit for bit, timed, with its
+    bound, and S swept at both; the plain version's block of ray-triangle
+    pairs (PAIR_BLOCK) at three sizes, each equal to the default; and the
+    static box with LMCMC_ISECT_BACKEND=brute (the switch must pick the
+    brute force) on K1's rays, each variant bit for bit and timed (kept
+    under 'static_box'). Returns the rows of the kernels JSON line
+    (moving scene, 65,536 rays; 4,260 under 'large_step'), keyed by
+    launch-count name."""
+    from langevin_mcmc_tpu_torch.ops import intersect
+    from langevin_mcmc_tpu_torch.scene.parse import parse_scene
+    ptxas = ptxas_lines('brute.cu', 'brute_kernel')
+    for k in ptxas:
+        log(f'brute-force kernel ptxas: {k["name"]}: {k["registers"]} '
+            f'registers, {k["stack_bytes"]} bytes stack frame, '
+            f'{k["spill_stores"]} / {k["spill_loads"]} bytes spill stores / '
+            f'loads, {k["smem_bytes"]} bytes static shared memory')
+    if not ptxas:
+        log('brute-force kernel ptxas: not reported (the library was cached)')
+    scene, _, _ = parse_scene(xml_f, device='cuda')
+    full = motion_rays(scene, 65536, seed=23)
+    rows = {}
+    for n in (65536, LARGE_RAYS):
+        rays = tuple(x[:n].contiguous() for x in full)
+        for any_hit in (False, True):
+            key = 'any_hit' if any_hit else 'closest_hit'
+            row = brute_row(f'brute_{key}_motion', scene, rays, any_hit)
+            if n == 65536:
+                row['ptxas'] = [k for k in ptxas if 'Lb1ELb'
+                                + ('1E' if any_hit else '0E') in k['name']]
+                rows[key] = row
+            else:
+                rows[key]['large_step'] = {
+                    k: row[k] for k in ('rays', 'live', 'tests', 'splits',
+                                        'ms', 'ms_launches', 'plain_ms',
+                                        'bound_ms', 'bound_by')}
+        log('brute-force kernel, triangle ranges S (CUDA-event ms):')
+        brute_splits_table('motion', scene, rays)
+    # the plain version's blocks of ray-triangle pairs, each equal to the
+    # default
+    want = intersect._bruteforce_live(scene, *full)
     default = intersect.PAIR_BLOCK
     try:
         for pairs in (1 << 20, 1 << 22, 1 << 24):
             intersect.PAIR_BLOCK = pairs
-            got = intersect.intersect_bruteforce(scene, *rays)
+            got = intersect._bruteforce_live(scene, *full)
             if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                raise AssertionError(f'motion brute force: blocks of '
-                                     f'{pairs} pairs change the answer')
+                raise AssertionError(f'brute force plain version: blocks '
+                                     f'of {pairs} pairs change the answer')
             torch.cuda.reset_peak_memory_stats()
-            ms = cuda_ms(lambda: intersect.intersect_bruteforce(scene, *rays),
-                         3)
-            log(f'  blocks of {pairs} pairs'
+            ms = cuda_ms(lambda: intersect._bruteforce_live(scene, *full), 1)
+            log(f'  plain version, blocks of {pairs} pairs'
                 f'{" (default)" if pairs == default else ""}: closest hit '
                 f'{ms:.1f} ms, peak device memory '
                 f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
     finally:
         intersect.PAIR_BLOCK = default
-    return ms_c, ms_a
-
-
-class BruteForceCounter:
-    """Counts the brute-force queries issued from the host while it is
-    active (occluded queries call intersect_bruteforce too): queries and
-    rays; outside a CUDA graph capture also live rays and host-clock
-    seconds, each such query ending in a device sync. A captured step's
-    queries are issued once, at its capture, as eager calls between its
-    graphs, and rerun by every replay."""
-
-    def __init__(self):
-        self.calls = self.rays = self.live = 0
-        self.seconds = 0.0
-
-    def __enter__(self):
-        from langevin_mcmc_tpu_torch.ops import intersect
-        self.orig = orig = intersect.intersect_bruteforce
-
-        def counting(scene, org, d, time_, min_t, max_t):
-            self.calls += 1
-            self.rays += org.shape[0]
-            if torch.cuda.is_current_stream_capturing():
-                return orig(scene, org, d, time_, min_t, max_t)
-            t0 = time.time()
-            out = orig(scene, org, d, time_, min_t, max_t)
-            torch.cuda.synchronize()
-            self.seconds += time.time() - t0
-            self.live += int((max_t >= min_t).sum())
-            return out
-        intersect.intersect_bruteforce = counting
-        return self
-
-    def __exit__(self, *exc):
-        from langevin_mcmc_tpu_torch.ops import intersect
-        intersect.intersect_bruteforce = self.orig
+    del scene, want
+    scene, _, _ = parse_scene(xml, device='cuda')
+    saved = os.environ.get('LMCMC_ISECT_BACKEND')
+    os.environ['LMCMC_ISECT_BACKEND'] = 'brute'
+    try:
+        fi, fo = intersect.make_intersect_fns(scene)
+    finally:
+        if saved is None:
+            os.environ.pop('LMCMC_ISECT_BACKEND')
+        else:
+            os.environ['LMCMC_ISECT_BACKEND'] = saved
+    if fi.func is not intersect.intersect_bruteforce or \
+            fo.func is not intersect.occluded_bruteforce:
+        raise AssertionError('LMCMC_ISECT_BACKEND=brute did not pick the '
+                             'brute force on the box')
+    org, d, mn, mx = kernel_rays(scene, 65536, seed=7)
+    rays = (org, d, torch.zeros_like(mn), mn, mx)
+    for any_hit in (False, True):
+        key = 'any_hit' if any_hit else 'closest_hit'
+        row = brute_row(f'brute_{key}_box', scene, rays, any_hit)
+        q = (fo if any_hit else fi)(*rays)
+        k = intersect.brute_force(scene, *rays, any_hit=any_hit)
+        if not torch.equal(q if any_hit else q[1], k if any_hit else k[1]):
+            raise AssertionError(f'brute_{key}_box: the switch\'s query '
+                                 f'differs from the kernel')
+        rows[key]['static_box'] = {
+            k: row[k] for k in ('rays', 'live', 'tests', 'splits', 'ms',
+                                'ms_launches', 'plain_ms', 'bound_ms',
+                                'bound_by')}
+    return rows
 
 
 def render(label, xml, env, sky=False, num_steps=None):
@@ -802,13 +1096,13 @@ def render(label, xml, env, sky=False, num_steps=None):
     from langevin_mcmc_tpu_torch.__main__ import main as cli_main
     from langevin_mcmc_tpu_torch.integrators.mlt import render_mlt
     from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
+    from langevin_mcmc_tpu_torch.ops import intersect
     from langevin_mcmc_tpu_torch.ops import sweep_isect as sw
     from langevin_mcmc_tpu_torch.scene.parse import parse_scene
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     torch.cuda.reset_peak_memory_stats()
-    cw.reset_launch_counts()
-    sw.reset_launch_counts()
+    reset_launches()
     try:
         if num_steps is None:
             res = cli_main([xml, '--spp', '1', '--chunk', str(CHUNK),
@@ -834,6 +1128,8 @@ def render(label, xml, env, sky=False, num_steps=None):
                 os.environ[k] = v
     launches = dict(cw.launch_counts)
     launches.update({'sweep_' + k: v for k, v in sw.launch_counts.items()})
+    launches.update({'brute_' + k: v
+                     for k, v in intersect.launch_counts.items()})
     log(f'{label}: {env or "default backends"}; total {res["seconds"]:.2f} '
         f's, peak device memory '
         f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
@@ -866,7 +1162,7 @@ def chain_rate(label, res):
     """Print a render's phase times, proposals/s and acceptance rate;
     returns the chain loop's proposals/s."""
     tm = res['timings']
-    graph_line(label, tm)
+    res['replay_ms'] = graph_line(label, tm)
     proposals = tm['steps'] * res['opts'].num_chains
     props = proposals / tm['loop_s']
     log(f'{label}: b = {res["b"]:.6g}; direct {tm["direct_s"]:.2f} s, '
@@ -964,11 +1260,10 @@ def prefill_cache(banked, opts, times=2):
 def sync_free(fn):
     """fn() under torch.cuda.set_sync_debug_mode('error'): any host sync
     raises, but in the calls a captured step makes between its graphs
-    (ops/graphs.eager_call: H2MC's eigh, the motion brute force), which
-    run with the mode off."""
+    (ops/graphs.eager_call: H2MC's eigh), which run with the mode off."""
     from langevin_mcmc_tpu_torch.mcmc import gaussian
-    from langevin_mcmc_tpu_torch.ops import graphs, intersect
-    users = (gaussian, intersect)
+    from langevin_mcmc_tpu_torch.ops import graphs
+    users = (gaussian,)
 
     def off(f, *a):
         torch.cuda.set_sync_debug_mode(0)
@@ -987,16 +1282,20 @@ def sync_free(fn):
             m.eager_call = graphs.eager_call
 
 
+def _kernel_modules():
+    from langevin_mcmc_tpu_torch.ops import (bvh, chunkwalk, intersect,
+                                             sweep_isect)
+    return chunkwalk, sweep_isect, bvh, intersect
+
+
 def all_launches():
     """Every kernel wrapper's launch counts, by module."""
-    from langevin_mcmc_tpu_torch.ops import bvh, chunkwalk, sweep_isect
     return {m.__name__.rsplit('.', 1)[1]: dict(m.launch_counts)
-            for m in (chunkwalk, sweep_isect, bvh)}
+            for m in _kernel_modules()}
 
 
 def reset_launches():
-    from langevin_mcmc_tpu_torch.ops import bvh, chunkwalk, sweep_isect
-    for m in (chunkwalk, sweep_isect, bvh):
+    for m in _kernel_modules():
         m.reset_launch_counts()
 
 
@@ -1388,7 +1687,7 @@ LARGE_RAYS = int(0.05 * 65536 * 1.3) + 1   # the large step's 4,260 rays
 def bvh_rays(tag, scene):
     """The BVH phase's 65,536 rays (org, d, time, min_t, max_t) of a scene:
     the box's are check_kernels', the open scene's open_rows', the moving
-    scene's motion_queries'."""
+    scene's brute_phase's."""
     if tag == 'box':
         org, d, mn, mx = kernel_rays(scene, 65536, seed=7)
         return org, d, torch.zeros_like(mn), mn, mx
@@ -1405,8 +1704,8 @@ def bvh_phase(xml, xml_open, xml_f):
     numpy and native builds and pack_bvh timed; ptxas's registers, stack
     and spills of each kernel instantiation; the kernel against its plain
     version (closest and any hit, at 65,536 and 4,260 rays; the rays of
-    check_kernels, open_rows and motion_queries); on the moving scene the
-    whole BVH query beside the motion brute force. Returns the rows of
+    check_kernels, open_rows and brute_phase); on the moving scene the
+    whole BVH query beside the brute-force kernel's. Returns the rows of
     the kernels JSON line (65,536 rays), keyed by (variant, scene)."""
     from langevin_mcmc_tpu_torch.native import build_bvh_native
     from langevin_mcmc_tpu_torch.native import load_library as load_native
@@ -1478,10 +1777,10 @@ def bvh_phase(xml, xml_open, xml_f):
                               (True, intersect.occluded_bruteforce,
                                bvh.occluded_bvh)):
                 q[a] = (cuda_ms(lambda: fq(scene, *rays)),
-                        cuda_ms(lambda: fb(scene, *rays), 1))
+                        cuda_ms(lambda: fb(scene, *rays)))
             log(f'BVH motion, 65,536 rays: whole query closest / any hit '
-                f'BVH {q[False][0]:.3f} / {q[True][0]:.3f} ms, motion brute '
-                f'force {q[False][1]:.1f} / {q[True][1]:.1f} ms: '
+                f'BVH {q[False][0]:.3f} / {q[True][0]:.3f} ms, brute-force '
+                f'kernel {q[False][1]:.3f} / {q[True][1]:.3f} ms: '
                 f'{q[False][1] / q[False][0]:.1f}x / '
                 f'{q[True][1] / q[True][0]:.1f}x')
         del scene
@@ -1605,10 +1904,10 @@ def path_i(xml_f, rate_f, rate_d):
     """Path I: path F's configuration (the moving open scene, --spp 1)
     with a BVH attached, through the API (neither package's CLI attaches
     one): parse_scene, attach_bvh, render_mlt. No query may take the
-    brute force or a walk kernel; the BVH kernel must launch. Returns the
-    BVH launch counts."""
+    brute-force kernel or a walk kernel; the BVH kernel must launch.
+    Returns the BVH launch counts."""
     from langevin_mcmc_tpu_torch.integrators.mlt import render_mlt
-    from langevin_mcmc_tpu_torch.ops import bvh
+    from langevin_mcmc_tpu_torch.ops import bvh, intersect
     from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
     from langevin_mcmc_tpu_torch.ops import sweep_isect as sw
     from langevin_mcmc_tpu_torch.scene.parse import parse_scene
@@ -1619,30 +1918,31 @@ def path_i(xml_f, rate_f, rate_d):
     scene = bvh.attach_bvh(scene)
     t_build = time.time() - t0 - t_parse
     opts = opts.replace(spp=1)
-    for m in (cw, sw, bvh):
-        m.reset_launch_counts()
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device='cuda').manual_seed(opts.seed_offset)
     tm = {}
     t0 = time.time()
-    with BruteForceCounter() as bf, torch.no_grad():
+    with torch.no_grad():
         film, b = render_mlt(scene, opts, gen, chunk=CHUNK, timings=tm)
         film = film.cpu().numpy()
     seconds = time.time() - t0
     launches = dict(bvh.launch_counts)
     walks = dict(cw.launch_counts, **sw.launch_counts)
+    brute = dict(intersect.launch_counts)
     log(f'{label}: parse {t_parse:.2f} s, attach_bvh {t_build:.2f} s, render '
         f'{seconds:.2f} s, peak device memory '
         f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; BVH kernel '
-        f'launches {launches}, walk launches {walks}, brute-force queries '
-        f'{bf.calls}')
+        f'launches {launches}, walk launches {walks}, brute-force kernel '
+        f'launches {brute}')
     check_film(label, film, sky=True)
     rate_i = chain_rate(label, dict(timings=tm, opts=opts, b=b))
     log(f'path I / path F chain-loop proposals/s (same call): {rate_i:.1f} / '
         f'{rate_f:.1f} = {rate_i / rate_f:.3f}; path I / path D: {rate_i:.1f}'
         f' / {rate_d:.1f} = {rate_i / rate_d:.3f}')
-    if bf.calls or any(walks.values()) or min(launches.values()) <= 0:
-        raise AssertionError(f'{label}: brute-force queries {bf.calls}, walk '
+    if any(brute.values()) or any(walks.values()) \
+            or min(launches.values()) <= 0:
+        raise AssertionError(f'{label}: brute-force launches {brute}, walk '
                              f'launches {walks}, BVH launches {launches}: '
                              f'every query must take the BVH kernel')
     return launches
@@ -1690,9 +1990,6 @@ def main():
                            large_step='cache', light_coords=True)
     xml_f = write_flagship(os.path.join(OUT, 'open_motion'), scene='open',
                            motion=True)
-    xml_f_cut = write_flagship(os.path.join(OUT, 'open_motion_cut'),
-                               num_init_samples=PATH_F_PARITY_INIT_SAMPLES,
-                               scene='open', motion=True)
     xml_g = write_flagship(os.path.join(OUT, 'flagship_iso'), kernel='iso')
     small_motion = testscenes.write_scene(
         os.path.join(OUT, 'small_motion'), small=True, width=64, height=48,
@@ -1714,6 +2011,7 @@ def main():
     open_kernel_rows = open_rows(scene)
     del scene
     bvh_rows = bvh_phase(xml, xml_open, xml_f)
+    brute_rows = brute_phase(xml, xml_f)
     nccl_phase(xml_e)
     check_generation(small_xml)
     check_generation(small_open)
@@ -1760,28 +2058,37 @@ def main():
         f'{scene.has_motion}, '
         f'{int((scene.tri_p[0] != scene.tri_p[1]).any(-1).any(-1).sum())} '
         f'of them move')
-    ms_c, ms_a = motion_queries(scene)
     del scene
-    with BruteForceCounter() as bf:
-        res_f, launch_f = render('path F (MALA, moving open scene)',
-                                 xml_f, {}, sky=True)
+    res_f, launch_f = render('path F (MALA, moving open scene)', xml_f, {},
+                             sky=True)
     rate_f = chain_rate('path F (MALA, moving open scene)', res_f)
-    tm = res_f['timings']
-    it_ms = tm['loop_s'] / tm['steps'] * 1e3
-    log(f'path F: {bf.calls} brute-force queries issued from the host '
-        f'({bf.rays} rays; those outside the capture: {bf.live} live rays, '
-        f'{bf.seconds:.2f} s host clock, synchronised), each captured one '
-        f'an eager call between graphs, rerun by every replay; one '
-        f'65,536-ray query = {ms_c / it_ms:.4f} (closest) / '
-        f'{ms_a / it_ms:.4f} (any) of an iteration ({it_ms:.1f} ms, warm-up '
-        f'and capture included)')
-    log(f'path F / path D chain-loop proposals/s (same call): '
-        f'{rate_f:.1f} / {rate_d:.1f} = {rate_f / rate_d:.4f}')
-    parity('F', xml_f_cut)
-    if bf.calls <= 0 or any(launch_f.values()):
-        raise AssertionError(f'path F: {bf.calls} brute-force queries, walk '
-                             f'kernel launches {launch_f}: a moving scene '
-                             f'must take the brute force only')
+    tm_f, tm_d = res_f['timings'], res_d['timings']
+    walks_f = {k: v for k, v in launch_f.items()
+               if not k.startswith('brute_')}
+    log(f'path F: brute-force kernel launches closest / any '
+        f'{launch_f["brute_closest_hit"]} / {launch_f["brute_any_hit"]}, '
+        f'eager calls a step {tm_f.get("eager_calls", 0)}, graphs a step '
+        f'{tm_f.get("graphs", 0)} (path D {tm_d.get("graphs", 0)}); '
+        f'walk launches {walks_f}')
+    log(f'path F / path D (same call): replays {res_f["replay_ms"]:.1f} / '
+        f'{res_d["replay_ms"]:.1f} ms an iteration = '
+        f'{res_f["replay_ms"] / res_d["replay_ms"]:.3f}; chain-loop '
+        f'proposals/s {rate_f:.1f} / {rate_d:.1f} = {rate_f / rate_d:.4f}; '
+        f'bootstrap + direct {tm_f["bootstrap_s"]:.2f} + '
+        f'{tm_f["direct_s"]:.2f} s. PERF.md section 5 (PR 10, log call 12, '
+        f'another call, the torch brute force between graphs): replays '
+        f'4,505.3 ms, 13,061.1 proposals/s, bootstrap + direct 100.14 + '
+        f'23.52 s')
+    if min(launch_f['brute_closest_hit'], launch_f['brute_any_hit']) <= 0 \
+            or tm_f.get('eager_calls', 0) or any(walks_f.values()) \
+            or tm_f.get('graphs') != tm_d.get('graphs'):
+        raise AssertionError(f'path F: launches {launch_f}, eager calls '
+                             f'{tm_f.get("eager_calls")}, graphs '
+                             f'{tm_f.get("graphs")} (path D '
+                             f'{tm_d.get("graphs")}): every query of a '
+                             f'moving scene must be the brute-force kernel, '
+                             f'inside the graphs')
+    parity('F', xml_f)
     res_g, launch_g = render('path G (isotropic-only chain)', xml_g, {})
     rate_g = chain_rate('path G (isotropic-only chain)', res_g)
     log(f'path G / path A chain-loop proposals/s (same call): '
@@ -1794,6 +2101,8 @@ def main():
                     for k, (e, c) in ms.items()))
     for (key, _), row in bvh_rows.items():
         row['launches'] = launch_i[key]
+    for key, row in brute_rows.items():
+        row['launches'] = launch_f['brute_' + key]
     for key in ('split_closest_hit', 'split_any_hit'):
         rows[key]['launches_path_g'] = launch_g[key]
         if launch_g[key] <= 0:
@@ -1822,7 +2131,8 @@ def main():
     log(f'total {time.time() - t_start:.1f} s')
     print(json.dumps({'kernels': list(rows.values())
                       + list(open_kernel_rows.values())
-                      + list(bvh_rows.values())}))
+                      + list(bvh_rows.values())
+                      + list(brute_rows.values())}))
     print(f'nvidia-smi: {card}')
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,12 +1,14 @@
-"""Native host components: the binned-SAH BVH build and angle-weighted
-vertex normals (copies of the JAX package's native/ sources), built with
-g++ at first use into ``_build/`` (git-ignored, keyed by a hash of the
-sources, the flags, the compiler's version and the machine) and bound
-with ctypes. A failed build raises.
+"""Native host components: the binned-SAH BVH build, angle-weighted
+vertex normals and the matmul sweep's Woop tables (copies of the JAX
+package's native/ sources, the same entry points), built with g++ at
+first use into ``_build/`` (git-ignored, keyed by a hash of the sources,
+the flags, the compiler's version and the machine) and bound with
+ctypes. A failed build raises.
 
 No render path of either package reaches them: attach_bvh builds with
 ops/bvh.build_bvh, whose nodes this builder does not reproduce bit for
-bit, and mesh normals come from scene/mesh.py."""
+bit, mesh normals come from scene/mesh.py and the Woop tables from
+ops/intersect.build_matmul_tables (numpy, float64)."""
 
 import ctypes
 import glob
@@ -21,7 +23,10 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _BUILD = os.path.join(os.path.dirname(_HERE), '_build')
-_FLAGS = ['-O3', '-fPIC', '-std=c++17', '-Wall', '-shared']
+# the JAX package's native/Makefile flags (its CXXFLAGS and LDFLAGS), so
+# that the two libraries round alike (-march=native lets g++ fuse products
+# into sums)
+_FLAGS = ['-O3', '-march=native', '-fPIC', '-std=c++17', '-Wall', '-shared']
 
 _lib = None
 
@@ -67,6 +72,9 @@ def load_library():
     lib.lmcmc_vertex_normals.restype = None
     lib.lmcmc_vertex_normals.argtypes = [fp, ctypes.c_int, ip, ctypes.c_int,
                                          ctypes.c_int, fp]
+    lib.lmcmc_woop_tables.restype = None
+    lib.lmcmc_woop_tables.argtypes = [fp, ctypes.c_int, fp, fp,
+                                      ctypes.POINTER(ctypes.c_uint8)]
     _lib = lib
     return lib
 
@@ -114,3 +122,21 @@ def vertex_normals_native(verts, indices, flip=False):
     lib.lmcmc_vertex_normals(_fptr(v), v.shape[0], _iptr(idx), idx.shape[0],
                              1 if flip else 0, _fptr(out))
     return out
+
+
+def woop_tables_native(tri):
+    """The Woop inverse frames of triangles tri [T, 3, 3] (keyframe 0):
+    (B [3, 3T] f32, C [3T] f32, ok [T] bool), as
+    ops/intersect.build_matmul_tables computes them (in float64, to
+    within f32 rounding)."""
+    t = np.ascontiguousarray(tri, np.float32)
+    if t.ndim != 3 or t.shape[1:] != (3, 3):
+        raise ValueError(f'triangles {t.shape}: expected [T, 3, 3]')
+    lib = load_library()
+    T = t.shape[0]
+    B = np.empty((3, 3 * T), np.float32)
+    C = np.empty(3 * T, np.float32)
+    ok = np.empty(T, np.uint8)
+    lib.lmcmc_woop_tables(_fptr(t), T, _fptr(B), _fptr(C),
+                          ok.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    return B, C, ok.astype(bool)

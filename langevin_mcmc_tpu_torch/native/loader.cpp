@@ -1,15 +1,16 @@
-// Native mesh preprocessing: angle-weighted vertex normals (a copy of the
-// vertex-normal part of the JAX package's native/loader.cpp; its Woop
-// tables feed only the matrix-product intersection backend, which the
-// port does not have).
-//
-// Nelson Max's angle-weighted vertex normals, the counterpart of the
-// reference's loadserialized.cpp:114-151 / parseobj.cpp:57-92 and of the
-// numpy scene/mesh.py::compute_vertex_normals, exposed via ctypes.
+// Native mesh preprocessing (a copy of the per-triangle part of the JAX
+// package's native/loader.cpp, same entry points and ABI), exposed via
+// ctypes:
+//  * Nelson Max's angle-weighted vertex normals, the counterpart of the
+//    reference's loadserialized.cpp:114-151 / parseobj.cpp:57-92 and of
+//    the numpy scene/mesh.py::compute_vertex_normals;
+//  * the Woop inverse-frame tables of the matmul intersection backend
+//    (ops/intersect.py build_matmul_tables, which the parser uses).
 
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 
 namespace {
 
@@ -80,6 +81,62 @@ void lmcmc_vertex_normals(const float* verts /*[V,3]*/, int num_verts,
             normals_out[3 * v + k] = l > 0 ? float(acc[3 * v + k] / l) : 0.f;
     }
     delete[] acc;
+}
+
+// Woop inverse-frame tables for the matmul intersection backend
+// (ops/intersect.py build_matmul_tables): per triangle invert
+// A = [e1 | e2 | e1 x e2]; outputs B [3, 3T] (A^-T laid out for a
+// [R,3] @ [3,3T] matmul), C [3T] (A^-1 p0) and a validity mask.
+void lmcmc_woop_tables(const float* tri /*[T,3,3]*/, int num_tris,
+                       float* B_out /*[3,3T]*/, float* C_out /*[3T]*/,
+                       uint8_t* ok_out /*[T]*/) {
+    for (int t = 0; t < num_tris; ++t) {
+        const float* p0 = tri + 9 * t;
+        const float* p1 = tri + 9 * t + 3;
+        const float* p2 = tri + 9 * t + 6;
+        double e1[3], e2[3], n[3];
+        for (int k = 0; k < 3; ++k) {
+            e1[k] = double(p1[k]) - p0[k];
+            e2[k] = double(p2[k]) - p0[k];
+        }
+        cross3(e1, e2, n);
+        // A columns = e1, e2, n; det and inverse (adjugate)
+        double A[3][3] = {{e1[0], e2[0], n[0]},
+                          {e1[1], e2[1], n[1]},
+                          {e1[2], e2[2], n[2]}};
+        double det = A[0][0] * (A[1][1] * A[2][2] - A[1][2] * A[2][1])
+                   - A[0][1] * (A[1][0] * A[2][2] - A[1][2] * A[2][0])
+                   + A[0][2] * (A[1][0] * A[2][1] - A[1][1] * A[2][0]);
+        bool ok = std::abs(det) > 1e-18;
+        ok_out[t] = ok ? 1 : 0;
+        double inv[3][3];
+        if (!ok) {
+            std::memset(inv, 0, sizeof(inv));
+            inv[0][0] = inv[1][1] = inv[2][2] = 1.0;
+        } else {
+            double id = 1.0 / det;
+            inv[0][0] = (A[1][1] * A[2][2] - A[1][2] * A[2][1]) * id;
+            inv[0][1] = (A[0][2] * A[2][1] - A[0][1] * A[2][2]) * id;
+            inv[0][2] = (A[0][1] * A[1][2] - A[0][2] * A[1][1]) * id;
+            inv[1][0] = (A[1][2] * A[2][0] - A[1][0] * A[2][2]) * id;
+            inv[1][1] = (A[0][0] * A[2][2] - A[0][2] * A[2][0]) * id;
+            inv[1][2] = (A[0][2] * A[1][0] - A[0][0] * A[1][2]) * id;
+            inv[2][0] = (A[1][0] * A[2][1] - A[1][1] * A[2][0]) * id;
+            inv[2][1] = (A[0][1] * A[2][0] - A[0][0] * A[2][1]) * id;
+            inv[2][2] = (A[0][0] * A[1][1] - A[0][1] * A[1][0]) * id;
+        }
+        // B layout: [3 rows, T*3 cols], column block t holds A^-T
+        for (int r = 0; r < 3; ++r)
+            for (int c = 0; c < 3; ++c)
+                B_out[size_t(r) * (3 * num_tris) + 3 * t + c] =
+                    float(inv[c][r]);
+        // C = A^-1 p0
+        for (int c = 0; c < 3; ++c) {
+            double s = 0;
+            for (int k = 0; k < 3; ++k) s += inv[c][k] * p0[k];
+            C_out[3 * t + c] = float(s);
+        }
+    }
 }
 
 }  // extern "C"

@@ -45,6 +45,7 @@ import torch
 
 from . import cuda_build
 from .graphs import launch_counter
+from .intersect import tri_test_ordered
 
 MAX_LEAF = 4
 N_BUCKETS = 12
@@ -255,46 +256,16 @@ def attach_bvh(scene):
 # the traversal: plain version
 # ---------------------------------------------------------------------------
 
-def _cross(a, b):
-    """a x b, each product and difference rounded on its own (the kernel's
-    order)."""
-    return (a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
-            a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
-            a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0])
-
-
-def _dot(a, b):
-    """a . b summed left to right; a, b tuples of 3 columns."""
-    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
-
-
 def _tri_test(tri_p, pid, org, d, time, has_motion):
-    """ops/intersect.moller_trumbore against triangles pid at the rays'
-    time, every product and sum rounded in the kernel's order. Returns
-    (t, u, v, divisor)."""
+    """ops/intersect.tri_test_ordered against triangles pid at the rays'
+    time (the kernel's order). Returns (t, u, v, divisor)."""
     if has_motion:
         tm = time[:, None, None]
         tp = (1.0 - tm) * tri_p[0][pid] + tm * tri_p[1][pid]
     else:
         tp = tri_p[0][pid]
     p0 = tp[:, 0]
-    e1 = tp[:, 1] - p0
-    e2 = tp[:, 2] - p0
-    dc = (d[:, 0], d[:, 1], d[:, 2])
-    s1 = _cross(d, e2)
-    divisor = _dot(s1, (e1[:, 0], e1[:, 1], e1[:, 2]))
-    clamped = torch.where(torch.abs(divisor) < 1e-12,
-                          torch.where(divisor < 0,
-                                      torch.full_like(divisor, -1e-12),
-                                      torch.full_like(divisor, 1e-12)),
-                          divisor)
-    inv_div = 1.0 / clamped
-    s = org - p0
-    u = _dot((s[:, 0], s[:, 1], s[:, 2]), s1) * inv_div
-    s2 = _cross(s, e1)
-    v = _dot(dc, s2) * inv_div
-    t = _dot((e2[:, 0], e2[:, 1], e2[:, 2]), s2) * inv_div
-    return t, u, v, divisor
+    return tri_test_ordered(org, d, p0, tp[:, 1] - p0, tp[:, 2] - p0)
 
 
 def _ray_box(inv_d, org, node, t_min, t_max):

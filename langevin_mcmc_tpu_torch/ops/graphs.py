@@ -8,9 +8,8 @@ is, with two exceptions, each of which ends the graph in progress and
 begins the next one after it:
 
 * eager_call(fn, ...): a call that cannot be captured (a library call
-  that reads its error flags on the host, as torch.linalg.eigh does, or
-  a query that compacts its live rays on the host, as the motion brute
-  force does) runs eagerly between two graphs, again at every replay;
+  that reads its error flags on the host, as torch.linalg.eigh does)
+  runs eagerly between two graphs, again at every replay;
 * cond_call(flag, fn, ...): JAX's lax.cond of a costly branch. Outside a
   capture fn runs and its results are selected by flag on the device.
   Captured, fn becomes graphs of its own, and a replay reads flag on the

@@ -1,13 +1,19 @@
 """Ray/triangle intersection over the whole scene (port of ops/intersect.py).
 
-* ``intersect_bruteforce`` — Moller-Trumbore over every triangle in chunks;
-  exact, the test oracle, and the query of every moving scene: each
-  (ray, triangle) pair tests the triangle's vertices lerped between the
-  two keyframes at the ray's time.
+* ``intersect_bruteforce`` — Moller-Trumbore over every triangle; exact,
+  the test oracle, and the query of every moving scene: each (ray,
+  triangle) pair tests the triangle's vertices lerped between the two
+  keyframes at the ray's time. CUDA tensors launch the hand kernel of
+  ``csrc/brute.cu``; CPU tensors run its plain version,
+  ``_bruteforce_block`` over the live rays.
+* ``intersect_matmul`` — the JAX package's XLA matmul sweep: keyframe-0
+  Woop frames (``SceneData.isect_B/C/ok``) against every ray as two
+  ``torch.matmul`` products a 1024-triangle chunk; plain torch, no kernel.
 * ``make_intersect_fns`` — the backend switch of the queries: an attached
   BVH (``ops/bvh.py``), the chunk walk (``ops/chunkwalk.py``), the culled
-  sweep (``ops/sweep_isect.py``) or brute force; each kernel launches for
-  CUDA tensors and runs its plain torch version for CPU tensors.
+  sweep (``ops/sweep_isect.py``), the matmul sweep or brute force; each
+  kernel launches for CUDA tensors and runs its plain torch version for
+  CPU tensors.
 * triangle rows (packed keyframe-0 rows on a static scene, rows lerped at
   the lane's time on a moving one), hit attributes and the frozen-triangle
   replay intersection used under differentiation.
@@ -20,12 +26,34 @@ import numpy as np
 import torch
 
 from ..utils import vecmath as vm
-from .graphs import eager_call
+from . import cuda_build
+from .graphs import launch_counter
 
 TRI_CHUNK = 1024
-# ray-triangle pairs one block of the brute force holds: a moving scene
-# materialises [rays, TRI_CHUNK, 3, 3] lerped vertices a block
+# ray-triangle pairs one block of the plain brute force holds: a moving
+# scene materialises [rays, TRI_CHUNK, 3, 3] lerped vertices a block
 PAIR_BLOCK = 1 << 22
+# rays a block of the brute-force kernel (csrc/brute.cu kThreads), and the
+# CTAs its triangle ranges aim at: about 31 blocks of 128 rays for each of
+# the H100's 132 SMs, which hold 9 each at the kernel's 56 registers a
+# thread: a query of a few thousand rays needs tens of ranges to fill the
+# card (chip_smoke.py times S at 65,536 and 4,260 rays; PERF.md)
+BRUTE_RAYS = 128
+BRUTE_CTAS = 4096
+# rays of one block of the matmul sweep: each 1024-triangle chunk makes two
+# [rays, 3072] f32 products, 0.8 GB at this many rays, so a chunk's
+# temporaries stay near 1.3 GB at the flagship's 65,536-ray queries (two
+# blocks) and a captured step's pool does not grow by more
+MATMUL_RAYS = 1 << 15
+
+# launches of the brute-force kernel, per variant; the plain version never
+# counts
+launch_counts = launch_counter(('closest_hit', 'any_hit'))
+
+
+def reset_launch_counts():
+    for k in launch_counts:
+        launch_counts[k] = 0
 
 
 def tri_vertices_at_time(scene, tri_idx, time):
@@ -45,7 +73,14 @@ def tri_normals_at_time(scene, tri_idx, time):
 
 
 def moller_trumbore(org, d, p0, e1, e2):
-    """Batched ray-triangle test. Returns (t, u, v, divisor)."""
+    """Batched ray-triangle test through torch's cross product and sum,
+    as the JAX package's (jnp.cross, jnp.sum). Returns (t, u, v,
+    divisor). The frozen replay and the matmul sweep's u, v use it, and
+    the kernels' plain versions use tri_test_ordered: the replay in the
+    kernels' order misses JAX's at rtol 1e-5 (one shading normal in
+    1,410, 6.1e-5 relative, tests/test_torch_motion_intersect.py
+    test_hit_geometry_and_frozen_triangle_match_jax), and no kernel
+    built with --fmad=false rounds as this form does."""
     s1 = vm.cross(d, e2)
     divisor = vm.dot(s1, e1)
     inv_div = 1.0 / vm.clamp_abs(divisor)
@@ -57,20 +92,80 @@ def moller_trumbore(org, d, p0, e1, e2):
     return t, u, v, divisor
 
 
+def _cross(a, b):
+    """a x b over the last axis, each product and difference rounded on
+    its own (csrc/tri.cuh's order). Returns the three components."""
+    return (a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+            a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+            a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0])
+
+
+def _dot(a, b):
+    """a . b summed left to right; a, b tuples of 3 components."""
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def _cols(x):
+    return x[..., 0], x[..., 1], x[..., 2]
+
+
+def tri_test_ordered(org, d, p0, e1, e2):
+    """moller_trumbore (broadcasting [..., 3] operands) with every product
+    and sum rounded on its own in the order of the kernels' test
+    (csrc/tri.cuh tri_test_edges): the test of the brute-force and BVH
+    kernels' plain versions, equal to the kernels bit for bit (torch's
+    cross product and sum round in another order, and on the CPU its
+    cross fuses a product into the difference; moller_trumbore says why
+    both forms stay). Returns (t, u, v, divisor)."""
+    s1 = _cross(d, e2)
+    divisor = _dot(s1, _cols(e1))
+    clamped = torch.where(torch.abs(divisor) < 1e-12,
+                          torch.where(divisor < 0,
+                                      torch.full_like(divisor, -1e-12),
+                                      torch.full_like(divisor, 1e-12)),
+                          divisor)
+    inv_div = 1.0 / clamped
+    s = org - p0
+    u = _dot(_cols(s), s1) * inv_div
+    s2 = _cross(s, e1)
+    v = _dot(_cols(d), s2) * inv_div
+    t = _dot(_cols(e2), s2) * inv_div
+    return t, u, v, divisor
+
+
 def intersect_bruteforce(scene, org, d, time, min_t, max_t):
     """Closest hit over all triangles. org/d [R,3]; time, min_t, max_t [R].
     Returns (hit, tri_id, t, u, v). A hit is the smallest t; a tie goes to
     the first triangle within a chunk of TRI_CHUNK and to the earlier chunk
-    across chunks. Only live rays (max_t >= min_t: no other can hit) are
-    tested, gathered on the host into blocks of PAIR_BLOCK // TRI_CHUNK
-    rays, so a captured step runs the query between its graphs
-    (ops/graphs.eager_call), again at every replay. Like the kernel
-    backends, the query is not differentiated."""
-    return eager_call(_bruteforce_live, scene, org.detach(), d.detach(),
-                      time.detach(), min_t.detach(), max_t.detach())
+    across chunks: the smallest id among the minimal t. Only live rays
+    (max_t >= min_t: no other can hit) are tested. CUDA tensors launch the
+    brute-force kernel (csrc/brute.cu; no host read, so a captured step
+    holds the query as graph nodes); CPU tensors run the plain version
+    over the live rays, gathered into blocks of PAIR_BLOCK // TRI_CHUNK
+    rays. Like the kernel backends, the query is not differentiated."""
+    args = [x.detach() for x in (org, d, time, min_t, max_t)]
+    if org.is_cuda:
+        t, tid, u, v = brute_force(scene, *args, any_hit=False)
+    else:
+        t, tid, u, v = _bruteforce_live(scene, *args)
+    hit = torch.isfinite(t)
+    return hit, tid, torch.where(hit, t, torch.zeros_like(t)), u, v
+
+
+def occluded_bruteforce(scene, org, d, time, min_t, max_t):
+    """Any-hit query; returns bool [R]: the closest hit's hit set (the
+    kernel stops each ray at its first hit)."""
+    if org.is_cuda:
+        return brute_force(scene, *(x.detach() for x in
+                                     (org, d, time, min_t, max_t)),
+                           any_hit=True)
+    return intersect_bruteforce(scene, org, d, time, min_t, max_t)[0]
 
 
 def _bruteforce_live(scene, org, d, time, min_t, max_t):
+    """The plain version over every ray: _bruteforce_block over the live
+    rays, gathered on the host. Returns (t, tri_id, u, v), t = inf and
+    the rest 0 where nothing is hit."""
     R = org.shape[0]
     dev = org.device
     best_t = torch.full((R,), float('inf'), device=dev)
@@ -86,14 +181,14 @@ def _bruteforce_live(scene, org, d, time, min_t, max_t):
                                     min_t[lanes], max_t[lanes])
             for full, part in zip((best_t, best_id, best_u, best_v), out):
                 full[lanes] = part
-    hit = torch.isfinite(best_t)
-    return hit, best_id, torch.where(hit, best_t, torch.zeros_like(best_t)), \
-        best_u, best_v
+    return best_t, best_id, best_u, best_v
 
 
 def _bruteforce_block(scene, org, d, time, min_t, max_t):
     """intersect_bruteforce's scan over the triangle chunks for one block
-    of rays. Returns (t, tri_id, u, v), t = inf where nothing is hit."""
+    of rays (the kernel's plain version; tri_test_ordered, on vm.lerp's
+    vertices on a moving scene). Returns (t, tri_id, u, v), t = inf where
+    nothing is hit."""
     T = scene.num_tris
     R = org.shape[0]
     dev = org.device
@@ -117,7 +212,7 @@ def _bruteforce_block(scene, org, d, time, min_t, max_t):
             p0 = tp[None, :, 0, :]
             e1 = (tp[:, 1, :] - tp[:, 0, :])[None]
             e2 = (tp[:, 2, :] - tp[:, 0, :])[None]
-        t, u, v, divisor = moller_trumbore(o, dd, p0, e1, e2)
+        t, u, v, divisor = tri_test_ordered(o, dd, p0, e1, e2)
         ok = ((divisor != 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
               & (t >= min_t[:, None]) & (t <= max_t[:, None]))
         t = torch.where(ok, t, torch.full_like(t, float('inf')))
@@ -132,41 +227,169 @@ def _bruteforce_block(scene, org, d, time, min_t, max_t):
     return best_t, best_id, best_u, best_v
 
 
-def occluded_bruteforce(scene, org, d, time, min_t, max_t):
-    """Any-hit query; returns bool [R]."""
-    return intersect_bruteforce(scene, org, d, time, min_t, max_t)[0]
+def brute_splits(num_rays, num_tris):
+    """S, the triangle ranges of the brute-force kernel: about BRUTE_CTAS
+    CTAs at any ray count, each range a whole number of 128-triangle
+    tiles and none empty."""
+    tiles = max(-(-num_tris // BRUTE_RAYS), 1)
+    blocks = max(-(-num_rays // BRUTE_RAYS), 1)
+    s = max(1, min(tiles, -(-BRUTE_CTAS // blocks)))
+    return -(-tiles // -(-tiles // s))
+
+
+def brute_force(scene, org, d, time, min_t, max_t, any_hit, splits=None):
+    """The brute-force kernel (csrc/brute.cu) on CUDA tensors: (t, id, u,
+    v) per ray (t = inf, the rest 0 where nothing is hit) or, with
+    any_hit, occluded (bool). splits: the triangle ranges S (default
+    brute_splits; the answer does not depend on it). Reads
+    scene.tri_p [2, T, 3, 3] as it is (both keyframes on a moving scene);
+    raises on inputs the kernel does not take and on a failed launch."""
+    dev = org.device
+    R, T = org.shape[0], scene.num_tris
+    check = cuda_build.check
+    check(scene.tri_p, 'tri_p', torch.float32, (2, T, 3, 3), dev)
+    org, d, time, min_t, max_t = (x.contiguous() for x in
+                                  (org, d, time, min_t, max_t))
+    check(org, 'org', torch.float32, (R, 3), dev)
+    check(d, 'dir', torch.float32, (R, 3), dev)
+    for x, name in ((time, 'time'), (min_t, 'min_t'), (max_t, 'max_t')):
+        check(x, name, torch.float32, (R,), dev)
+    tiles = -(-T // BRUTE_RAYS)
+    S = brute_splits(R, T) if splits is None else splits
+    if not 1 <= S <= tiles:
+        raise ValueError(f'{S} triangle ranges of {tiles} tiles')
+    part_t = torch.empty((S, R), dtype=torch.float32, device=dev)
+    if any_hit:
+        out = occ = torch.empty(R, dtype=torch.bool, device=dev)
+        part = (part_t, None, None, None)
+        res = (None,) * 4
+    else:
+        part = (part_t, torch.empty((S, R), dtype=torch.int32, device=dev),
+                torch.empty((S, R), dtype=torch.float32, device=dev),
+                torch.empty((S, R), dtype=torch.float32, device=dev))
+        out = res = (torch.empty(R, dtype=torch.float32, device=dev),
+                     torch.empty(R, dtype=torch.int32, device=dev),
+                     torch.empty(R, dtype=torch.float32, device=dev),
+                     torch.empty(R, dtype=torch.float32, device=dev))
+        occ = None
+    ptr = lambda x: None if x is None else x.data_ptr()
+    err = cuda_build.load_library().brute_force(
+        ptr(scene.tri_p), T, *map(ptr, (org, d, time, min_t, max_t)), R, S,
+        int(scene.has_motion), int(any_hit), *map(ptr, part),
+        *map(ptr, res), ptr(occ), cuda_build.stream_of(dev))
+    cuda_build.raise_on_error(err, f'brute_force (any_hit={any_hit})')
+    launch_counts['any_hit' if any_hit else 'closest_hit'] += 1
+    return out
+
+
+def intersect_matmul(scene, org, d, time, min_t, max_t):
+    """Closest hit by the JAX package's matmul sweep: per 1024-triangle
+    chunk, O = org @ Bc - Cc and Q = d @ Bc (torch.matmul, TF32 off) map
+    the rays into each triangle's Woop frame (keyframe 0:
+    scene.isect_B/C/ok), t = -O_w / Q_w (Q_w == 0 divides by 1e-12 and
+    fails the test), u = O_u + t Q_u, v = O_v + t Q_v. A tie goes to the
+    first triangle within a chunk and to the earlier chunk across chunks.
+    u and v are recomputed for the winner by moller_trumbore on
+    keyframe-0 vertices; a miss gives t, u, v 0 and id 0. time is
+    ignored, as in the JAX package: a moving scene is intersected at
+    keyframe 0. The rays go in blocks of MATMUL_RAYS; the
+    last chunk is cut at T rather than padded (a padded triangle never
+    wins). No host read: a captured step holds the query as graph nodes.
+    Returns (hit, tri_id, t, u, v)."""
+    T = scene.num_tris
+    B3 = scene.isect_B.reshape(3, T, 3)
+    C3 = scene.isect_C.reshape(T, 3)
+    ok_tri = scene.isect_ok
+    R = org.shape[0]
+    dev = org.device
+    t_out = torch.empty(R, device=dev)
+    id_out = torch.empty(R, dtype=torch.int32, device=dev)
+    for r0 in range(0, R, MATMUL_RAYS):
+        o, dd = org[r0:r0 + MATMUL_RAYS], d[r0:r0 + MATMUL_RAYS]
+        mn = min_t[r0:r0 + MATMUL_RAYS, None]
+        mx = max_t[r0:r0 + MATMUL_RAYS, None]
+        n = o.shape[0]
+        rows = torch.arange(n, device=dev)
+        best_t = torch.full((n,), float('inf'), device=dev)
+        best_id = torch.zeros(n, dtype=torch.int32, device=dev)
+        for s in range(0, T, TRI_CHUNK):
+            e = min(s + TRI_CHUNK, T)
+            Bc = B3[:, s:e].reshape(3, -1)
+            O = (o @ Bc - C3[s:e].reshape(-1)).reshape(n, e - s, 3)
+            Q = (dd @ Bc).reshape(n, e - s, 3)
+            qw = Q[..., 2]
+            t = -O[..., 2] / torch.where(qw == 0.0, torch.full_like(qw, 1e-12),
+                                         qw)
+            u = O[..., 0] + t * Q[..., 0]
+            v = O[..., 1] + t * Q[..., 1]
+            hit_ok = ((qw != 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+                      & (t >= mn) & (t <= mx) & ok_tri[None, s:e])
+            t = torch.where(hit_ok, t, torch.full_like(t, float('inf')))
+            amin = torch.argmin(t, 1)
+            ct = t[rows, amin]
+            better = ct < best_t
+            best_t = torch.where(better, ct, best_t)
+            best_id = torch.where(better, (amin + s).to(torch.int32),
+                                  best_id)
+        t_out[r0:r0 + n] = best_t
+        id_out[r0:r0 + n] = best_id
+    hit = torch.isfinite(t_out)
+    tp = scene.tri_p[0][id_out.long()]
+    _, u, v, _ = moller_trumbore(org, d, tp[:, 0], tp[:, 1] - tp[:, 0],
+                                 tp[:, 2] - tp[:, 0])
+    zero = torch.zeros_like(t_out)
+    return (hit, id_out, torch.where(hit, t_out, zero),
+            torch.where(hit, u, zero), torch.where(hit, v, zero))
+
+
+def occluded_matmul(scene, org, d, time, min_t, max_t):
+    """The closest hit's hit set (the JAX package's occluded_matmul runs
+    the closest hit too: its any_hit flag is ignored)."""
+    return intersect_matmul(scene, org, d, time, min_t, max_t)[0]
+
+
+BACKENDS = ('', 'chunkwalk', 'pallas', 'brute', 'matmul')
 
 
 def make_intersect_fns(scene):
     """Return (intersect, occluded) for the backend LMCMC_ISECT_BACKEND
-    names, read on each call as the JAX package's switch reads it. A
-    scene with a BVH attached (ops/bvh.attach_bvh, static or moving) takes
-    the BVH when the variable is unset. Otherwise '' or 'chunkwalk' the
-    chunk walk (its resident form when the pack is at most
-    LMC_CW_VMEM_BYTES bytes), 'pallas' the culled sweep (the JAX package's
-    Pallas sweep, ported as ops/sweep_isect.py), 'brute' brute force. A
-    scene with moving shapes takes brute force whatever the variable names
-    (unless a BVH is attached), as in the JAX package: the walk tables
-    hold keyframe 0 only. The XLA matmul sweep ('matmul') is not ported."""
+    names, read on each call as the JAX package's switch reads it, in its
+    order: a scene with a BVH attached (ops/bvh.attach_bvh, static or
+    moving) takes the BVH when the variable is unset; 'matmul' the matmul
+    sweep (keyframe-0 tables, so a moving scene is intersected at
+    keyframe 0, as in the JAX package); 'brute', or any scene with moving
+    shapes, brute force (the walk tables hold keyframe 0 only); 'pallas'
+    the culled sweep (the JAX package's Pallas sweep, ported as
+    ops/sweep_isect.py); '' or 'chunkwalk' the chunk walk (its resident
+    form when the pack is at most LMC_CW_VMEM_BYTES bytes).
+    Two differences from the JAX switch: '' on the CPU takes the chunk
+    walk's plain version, where the JAX package takes its matmul sweep
+    (the port's CPU tests of the kernels' plain versions stand on it);
+    and a name outside BACKENDS is refused, where the JAX package falls
+    through to its default."""
     backend = os.environ.get('LMCMC_ISECT_BACKEND', '')
-    if backend not in ('', 'chunkwalk', 'pallas', 'brute'):
-        raise ValueError(f'LMCMC_ISECT_BACKEND={backend!r}: the port has the '
-                         f"backends 'chunkwalk', 'pallas' and 'brute' (the "
-                         f'XLA matmul sweep is not ported)')
+    if backend not in BACKENDS:
+        raise ValueError(f'LMCMC_ISECT_BACKEND={backend!r}: the backends '
+                         f'are {", ".join(map(repr, BACKENDS[1:]))} (unset: '
+                         f'the default)')
     if scene.use_bvh and backend == '':
         from .bvh import intersect_bvh, occluded_bvh
         return (partial(intersect_bvh, scene), partial(occluded_bvh, scene))
+    if backend == 'matmul':
+        return (partial(intersect_matmul, scene),
+                partial(occluded_matmul, scene))
     if backend == 'brute' or scene.has_motion:
         return (partial(intersect_bruteforce, scene),
                 partial(occluded_bruteforce, scene))
-    if backend in ('', 'chunkwalk'):
-        from .chunkwalk import (intersect_chunkwalk, occluded_chunkwalk,
-                                use_resident)
-        resident = use_resident(scene.cw.pack)
-        return (partial(intersect_chunkwalk, scene, resident=resident),
-                partial(occluded_chunkwalk, scene, resident=resident))
-    from .sweep_isect import intersect_sweep, occluded_sweep
-    return (partial(intersect_sweep, scene), partial(occluded_sweep, scene))
+    if backend == 'pallas':
+        from .sweep_isect import intersect_sweep, occluded_sweep
+        return (partial(intersect_sweep, scene),
+                partial(occluded_sweep, scene))
+    from .chunkwalk import (intersect_chunkwalk, occluded_chunkwalk,
+                            use_resident)
+    resident = use_resident(scene.cw.pack)
+    return (partial(intersect_chunkwalk, scene, resident=resident),
+            partial(occluded_chunkwalk, scene, resident=resident))
 
 
 # ---------------------------------------------------------------------------

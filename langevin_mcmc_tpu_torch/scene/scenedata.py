@@ -66,6 +66,11 @@ class SceneData:
     tri_mat: torch.Tensor      # [T] int32
     tri_light: torch.Tensor    # [T] int32, -1 if not an area light
     tri_geom: torch.Tensor     # [T, 24] p0 e1 e2 n0..n2 st0..st2, keyframe 0
+    # keyframe-0 Woop frames of the matmul sweep (ops/intersect.py
+    # build_matmul_tables, intersect_matmul)
+    isect_B: torch.Tensor      # [3, 3T] f32
+    isect_C: torch.Tensor      # [3T] f32
+    isect_ok: torch.Tensor     # [T] bool
     mat_type: torch.Tensor     # [M] int32
     mat_twosided: torch.Tensor  # [M] bool
     mat_kd: torch.Tensor       # [M, 3] (Kt for roughdielectric)
@@ -110,7 +115,7 @@ class SceneData:
     textures: TexturePack
     cw: ChunkWalkTables        # keyframe 0: the static scenes' walks
     sweep: ChunkWalkTables
-    has_motion: bool           # a shape moves: every query is brute force
+    has_motion: bool           # a shape moves: brute force (ops/intersect.py)
     num_tris: int
     num_lights: int
     width: int
@@ -224,8 +229,9 @@ def build_scene(host, device='cuda'):
     use_bvh the kernel's tables are packed (ops/bvh.pack_bvh).
     The default is the card; a machine without one must ask for
     device='cpu'. Both keyframes of tri_p and tri_n go to the device; the
-    packed rows and the walk tables hold keyframe 0, which is all a static
-    scene reads and a moving one never does."""
+    packed rows, the walk tables and the matmul sweep's Woop frames
+    (isect_B/C/ok) hold keyframe 0, which is all a static scene reads and
+    a moving one reads only under LMCMC_ISECT_BACKEND=matmul."""
     from ..ops import bvh, chunkwalk, sweep_isect
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
@@ -264,6 +270,9 @@ def build_scene(host, device='cuda'):
         tri_p=t(tri_p), tri_n=f32('tri_n'), tri_st=f32('tri_st'),
         tri_mat=i32('tri_mat'), tri_light=i32('tri_light'),
         tri_geom=t(build_tri_geom(tri_p[0], tri_n[0], tri_st)),
+        isect_B=f32('isect_B'), isect_C=f32('isect_C'),
+        isect_ok=torch.as_tensor(np.array(host['isect_ok'], bool),
+                                 device=device),
         mat_type=i32('mat_type'),
         mat_twosided=torch.as_tensor(np.array(host['mat_twosided'], bool),
                                      device=device),

@@ -14,8 +14,8 @@ CONFIG (no CONFIG: box, open and cache):
   mmlt        the box with multiplexed large steps;
   mmlt_lc     the box with multiplexed large steps and light coordinates;
   motion      the open scene with --motion, path F: every ray query is the
-              motion brute force (stage intersect_bruteforce, which the
-              any-hit queries call too), no bake;
+              brute-force kernel (stage brute_force, the wrapper of
+              csrc/brute.cu, closest and any hit), no bake;
   iso         the box with the isotropic-only chain, path G;
   bvh         path F's moving open scene with a BVH attached (attach_bvh),
               path I: every ray query is the BVH kernel (stage traverse,
@@ -147,7 +147,7 @@ def profile_scene(xml, label, card, prefill=False, time_only=False,
                   (cache, 'eval_pdf_cache'), (cache, 'sample_cache'),
                   (cache, 'push_batch'), (chunkwalk, 'sort_rays'),
                   (chunkwalk, 'walk_staged'), (chunkwalk, 'walk_resident'),
-                  (intersect, 'intersect_bruteforce'), (bvh, 'traverse'),
+                  (intersect, 'brute_force'), (bvh, 'traverse'),
                   (mlt, 'splat')]
         saved = []
         for mod, name in stages:

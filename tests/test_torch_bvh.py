@@ -138,7 +138,7 @@ def test_traversal_equals_bruteforce_hits(scenes):
     hb, ib, tb, _, _ = intersect.intersect_bruteforce(ts, *rays)
     hv, iv, tv, _, _ = bvh.intersect_bvh(ts, *rays)
     assert torch.equal(hb, hv)
-    # both torch; the brute force's cross and dot round in another order
+    # both torch, and both run intersect.tri_test_ordered
     np.testing.assert_allclose(tv[hv].numpy(), tb[hb].numpy(), rtol=1e-5)
 
 

@@ -96,6 +96,12 @@ def test_moving_scene_routes_to_brute_force(moving, monkeypatch, backend):
     isect, occl = intersect.make_intersect_fns(scene)
     assert isect.func is intersect.intersect_bruteforce
     assert occl.func is intersect.occluded_bruteforce
+    # as in the JAX package, 'matmul' is checked before motion: the matmul
+    # sweep, at keyframe 0; a name the switch does not know is refused
     monkeypatch.setenv('LMCMC_ISECT_BACKEND', 'matmul')
-    with pytest.raises(ValueError, match='matmul'):
+    isect, occl = intersect.make_intersect_fns(scene)
+    assert isect.func is intersect.intersect_matmul
+    assert occl.func is intersect.occluded_matmul
+    monkeypatch.setenv('LMCMC_ISECT_BACKEND', 'mxu')
+    with pytest.raises(ValueError, match='mxu'):
         intersect.make_intersect_fns(scene)

@@ -160,7 +160,8 @@ def test_plain_sweep_matches_chunk_walk(scenes, rays, port_out):
     ('', 'intersect_chunkwalk', False),
     ('chunkwalk', 'intersect_chunkwalk', False),
     ('pallas', 'intersect_sweep', None),
-    ('brute', 'intersect_bruteforce', None)])
+    ('brute', 'intersect_bruteforce', None),
+    ('matmul', 'intersect_matmul', None)])
 def test_backend_switch(scenes, monkeypatch, backend, name, resident):
     _, ts = scenes
     monkeypatch.setenv('LMCMC_ISECT_BACKEND', backend)
@@ -179,6 +180,13 @@ def test_backend_switch(scenes, monkeypatch, backend, name, resident):
 
 
 def test_backend_switch_rejects_matmul(scenes, monkeypatch):
+    """The switch once refused 'matmul'; the matmul sweep is ported, so
+    the name routes to it, and a name the switch does not know is
+    refused."""
     monkeypatch.setenv('LMCMC_ISECT_BACKEND', 'matmul')
-    with pytest.raises(ValueError, match='not ported'):
+    fi, fo = isect.make_intersect_fns(scenes[1])
+    assert fi.func is isect.intersect_matmul
+    assert fo.func is isect.occluded_matmul
+    monkeypatch.setenv('LMCMC_ISECT_BACKEND', 'mxu')
+    with pytest.raises(ValueError, match='mxu'):
         isect.make_intersect_fns(scenes[1])
