@@ -57,13 +57,14 @@ Phases (any failure exits non-zero before the last line is printed):
      (_bruteforce_block over the live rays) bit for bit on path F's moving
      scene at 65,536 rays (motion_rays: half camera rays, half from
      surface points at the ray's time, 30% of those dead) and the large
-     step's 4,260, with its time, the plain version's (one run) and its
-     bound (the tests this run needs: every live ray against every
-     triangle for the closest hit, up to each ray's first hit in each
-     triangle range for the any hit); the triangle ranges S swept at both
-     ray counts, each checked equal; the plain version's PAIR_BLOCK at
-     three sizes, each equal; and the static box with
-     LMCMC_ISECT_BACKEND=brute on K1's rays;
+     step's 4,260, with its time, the plain version's (one run), the
+     tiles on a block's list (mean, p99) and the pairs its rays test
+     beside live rays x triangles (brute_tiles.query_stats), and its
+     bound (as the first design's: every live ray against every triangle
+     for the closest hit, up to each ray's first hit in id order for the
+     any hit); the tile ranges S swept at both ray counts, each checked
+     equal; the plain version's PAIR_BLOCK at three sizes, each equal;
+     and the static box with LMCMC_ISECT_BACKEND=brute on K1's rays;
   6. a one-rank NCCL process group on the card: global_sum, the cache
      merger (its all-gather of CUDA tensors) against merge_stacked on the
      CPU bit for bit, and the film all-reduce, each timed;
@@ -175,9 +176,11 @@ test (28 more for a moving triangle's lerp); also the work's spread and
 divergence, ptxas's report, pack_bvh's seconds and the large step's
 numbers (large_step). The brute-force rows (brute_{closest,any}_hit_
 motion, "pallas": false: the JAX brute force is an XLA scan) carry their
-launches on path F, a bound from the tests this run's rays need (61 f32
-operations a test, + 28 for the moving lerp), the triangle ranges S, the
-large step's numbers (large_step) and the static box's (static_box). The
+launches on path F, a bound from the tests the function needs on this
+run's rays, as the brute force tests them (61 f32 operations a test, +
+28 for the moving lerp), the pairs the kernel's rays test (pairs_tested)
+and the tiles on a block's list, the tile ranges S, the large step's
+numbers (large_step) and the static box's (static_box). The
 K1-K4 rows carry matmul_sweep_ms: one matmul-sweep query on their rays
 (several torch calls, not one library call).
 The last line is {"ok": true, "device": {...}}.
@@ -872,12 +875,13 @@ def motion_rays(scene, n, seed):
 
 
 def brute_any_tests(scene, rays):
-    """Ray-triangle tests an any-hit query needs on these rays, whatever
-    the kernel: each live ray tests up to and including its first valid
-    triangle in id order, or every triangle where none is (the plain
-    version's arithmetic, chunk by chunk, 4,096 rays at a time). The
-    kernel's S triangle ranges each test up to their own first valid
-    triangle; those extra tests are its design's, not the function's."""
+    """Ray-triangle tests an any-hit query needs on these rays as the
+    brute force runs it: each live ray tests up to and including its
+    first valid triangle in id order, or every triangle where none is
+    (the plain version's arithmetic, chunk by chunk, 4,096 rays at a
+    time). The bound of the brute-force rows, kept as the first design's
+    so that the rows stay comparable; the culled kernel tests fewer
+    (pairs_tested)."""
     from langevin_mcmc_tpu_torch.ops import intersect
     from langevin_mcmc_tpu_torch.utils import vecmath as vm
     org, d, tm, mn, mx = rays
@@ -912,8 +916,11 @@ def brute_any_tests(scene, rays):
 def brute_row(name, scene, rays, any_hit):
     """The brute-force kernel (csrc/brute.cu) on these rays against its
     plain version (_bruteforce_block over the live rays) bit for bit,
-    timed (one call, and back to back), the plain version's time (one run
-    between CUDA events: it gathers the live rays on the host), and the
+    timed (one call, and back to back), the plain version's
+    time (one run between CUDA events: it gathers the live rays on the
+    host), the
+    culled query's tiles on a block's list and pairs tested
+    (brute_tiles.query_stats, the kernel's decisions in torch), and the
     bound: ray-triangle tests (live rays x triangles for the closest hit,
     brute_any_tests for the any hit) x f32 operations a test (55 on a
     static scene, whose edges both versions compute once a tile or chunk;
@@ -921,14 +928,14 @@ def brute_row(name, scene, rays, any_hit):
     per test) over 67 TFLOP/s, or the bytes (triangles and rays read once,
     outputs written once) over 3.35 TB/s. Returns the row of the kernels
     JSON line."""
-    from langevin_mcmc_tpu_torch.ops import intersect
+    from langevin_mcmc_tpu_torch.ops import brute_tiles, intersect
     org, d, tm, mn, mx = rays
-    kernel = lambda: intersect.brute_force(scene, *rays, any_hit=any_hit)
+    query = lambda: intersect.brute_force(scene, *rays, any_hit=any_hit)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     ev[0].record()
     want = intersect._bruteforce_live(scene, *rays)
     ev[1].record()
-    got = kernel()
+    got = query()
     torch.cuda.synchronize()
     plain_ms = ev[0].elapsed_time(ev[1])
     if any_hit:
@@ -941,8 +948,8 @@ def brute_row(name, scene, rays, any_hit):
             if not torch.equal(a, b):
                 raise AssertionError(f'{name}: {f} differs on '
                                      f'{(a != b).sum().item()} rays')
-    ms = cuda_ms(kernel)
-    ms_launches = cuda_ms_launches(kernel)
+    ms = cuda_ms(query)
+    ms_launches = cuda_ms_launches(query)
     R, T = org.shape[0], scene.num_tris
     live = int((mx >= mn).sum())
     S = intersect.brute_splits(R, T)
@@ -956,11 +963,16 @@ def brute_row(name, scene, rays, any_hit):
     bound_ms, bound_by = (ops_ms, 'operations') if ops_ms >= bytes_ms \
         else (bytes_ms, 'bytes')
     hits = int((got if any_hit else torch.isfinite(got[0])).sum())
+    st = brute_tiles.query_stats(scene, *rays)
     log(f'{name}, {R} rays ({live} live, {hits} hit) x {T} triangles, S = '
         f'{S}: equal to the plain version; kernel {ms:.3f} ms (back to back '
-        f'{ms_launches:.3f} ms), plain {plain_ms:.1f} ms; the function needs '
-        f'{tests:.4g} ray-triangle tests, {tests / ms / 1e6:.1f} G of them '
-        f'a second; bound '
+        f'{ms_launches:.3f} ms), plain {plain_ms:.1f} ms; the brute force '
+        f'runs {tests:.4g} ray-triangle tests, {tests / ms / 1e6:.1f} G of '
+        f'them a second; the culled query\'s rays test {st["tested"]:.4g} '
+        f'pairs of {live * T:.4g} live rays x triangles '
+        f'({st["tested"] / max(live * T, 1):.4f}), '
+        f'{st["list_mean"]:.1f} / {st["list_p99"]:.0f} tiles on a block\'s '
+        f'list (mean / p99) of {st["tiles"]}; bound '
         f'{bound_ms:.3f} ms ({bound_by}), kernel / bound '
         f'{ms / bound_ms:.2f}')
     return dict(name=name, route='cuda',
@@ -969,12 +981,15 @@ def brute_row(name, scene, rays, any_hit):
                 + ('109' if any_hit else '59'), pallas=False,
                 max_abs_err=0.0, ms=ms, ms_launches=ms_launches,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, rays=R, live=live, tests=tests, splits=S)
+                library_ms=None, rays=R, live=live, tests=tests, splits=S,
+                pairs_tested=st['tested'], list_mean=st['list_mean'],
+                list_p99=st['list_p99'], tiles=st['tiles'])
 
 
 def brute_splits_table(label, scene, rays):
-    """The brute-force kernel at several triangle ranges S (the default
-    marked), each first checked equal to the default."""
+    """The brute-force kernel at several tile ranges S (the default
+    marked), each first checked equal to the default, timed
+    (cuda_ms_launches)."""
     from langevin_mcmc_tpu_torch.ops import intersect
     R, T = rays[0].shape[0], scene.num_tris
     S0 = intersect.brute_splits(R, T)
@@ -990,10 +1005,16 @@ def brute_splits_table(label, scene, rays):
             if not all(torch.equal(x, y)
                        for x, y in zip(as_tuple(fn()), ref[a])):
                 raise AssertionError(f'{label}: S={S} changes the answer')
-            row.append(cuda_ms(fn))
+            row.append(cuda_ms_launches(fn))
         log(f'  {label}, {R} rays, S={S}{" (default)" if S == S0 else ""}, '
             f'{-(-R // intersect.BRUTE_RAYS) * S} CTAs: closest '
             f'{row[0]:.3f} ms, any {row[1]:.3f} ms')
+
+
+# the numbers of a brute-force row kept for the large step and the box
+BRUTE_KEYS = ('rays', 'live', 'tests', 'splits', 'ms', 'ms_launches',
+              'plain_ms', 'bound_ms', 'bound_by', 'pairs_tested',
+              'list_mean', 'list_p99', 'tiles')
 
 
 def brute_phase(xml, xml_f):
@@ -1004,11 +1025,13 @@ def brute_phase(xml, xml_f):
     bound, and S swept at both; the plain version's block of ray-triangle
     pairs (PAIR_BLOCK) at three sizes, each equal to the default; and the
     static box with LMCMC_ISECT_BACKEND=brute (the switch must pick the
-    brute force) on K1's rays, each variant bit for bit and timed (kept
-    under 'static_box'). Returns the rows of the kernels JSON line
+    brute force; the kernel runs on the keyframe-0 tables) on K1's rays,
+    each variant bit for bit and timed (kept under 'static_box'). Returns
+    the rows of the kernels JSON line
     (moving scene, 65,536 rays; 4,260 under 'large_step'), keyed by
-    launch-count name."""
-    from langevin_mcmc_tpu_torch.ops import intersect
+    launch-count name; each row also holds the host seconds of one build
+    of each scene's tables (tables_build_s)."""
+    from langevin_mcmc_tpu_torch.ops import brute_tiles, intersect
     from langevin_mcmc_tpu_torch.scene.parse import parse_scene
     ptxas = ptxas_lines('brute.cu', 'brute_kernel')
     for k in ptxas:
@@ -1019,6 +1042,9 @@ def brute_phase(xml, xml_f):
     if not ptxas:
         log('brute-force kernel ptxas: not reported (the library was cached)')
     scene, _, _ = parse_scene(xml_f, device='cuda')
+    t0 = time.perf_counter()
+    brute_tiles.tables_for(scene.tri_p, True)
+    build_s = {'motion': time.perf_counter() - t0}
     full = motion_rays(scene, 65536, seed=23)
     rows = {}
     for n in (65536, LARGE_RAYS):
@@ -1027,15 +1053,12 @@ def brute_phase(xml, xml_f):
             key = 'any_hit' if any_hit else 'closest_hit'
             row = brute_row(f'brute_{key}_motion', scene, rays, any_hit)
             if n == 65536:
-                row['ptxas'] = [k for k in ptxas if 'Lb1ELb'
-                                + ('1E' if any_hit else '0E') in k['name']]
+                # one instantiation a scene kind (any_hit is an argument)
+                row['ptxas'] = [k for k in ptxas if 'ILb1E' in k['name']]
                 rows[key] = row
             else:
-                rows[key]['large_step'] = {
-                    k: row[k] for k in ('rays', 'live', 'tests', 'splits',
-                                        'ms', 'ms_launches', 'plain_ms',
-                                        'bound_ms', 'bound_by')}
-        log('brute-force kernel, triangle ranges S (CUDA-event ms):')
+                rows[key]['large_step'] = {k: row[k] for k in BRUTE_KEYS}
+        log('brute-force kernel, tile ranges S (CUDA-event ms):')
         brute_splits_table('motion', scene, rays)
     # the plain version's blocks of ray-triangle pairs, each equal to the
     # default
@@ -1057,10 +1080,12 @@ def brute_phase(xml, xml_f):
     finally:
         intersect.PAIR_BLOCK = default
     del scene, want
-    scene, _, _ = parse_scene(xml, device='cuda')
+    # the static box's tables come from build_scene under the variable,
+    # as a user's render gets them
     saved = os.environ.get('LMCMC_ISECT_BACKEND')
     os.environ['LMCMC_ISECT_BACKEND'] = 'brute'
     try:
+        scene, _, _ = parse_scene(xml, device='cuda')
         fi, fo = intersect.make_intersect_fns(scene)
     finally:
         if saved is None:
@@ -1071,6 +1096,12 @@ def brute_phase(xml, xml_f):
             fo.func is not intersect.occluded_bruteforce:
         raise AssertionError('LMCMC_ISECT_BACKEND=brute did not pick the '
                              'brute force on the box')
+    t0 = time.perf_counter()
+    brute_tiles.tables_for(scene.tri_p, False)
+    build_s['static'] = time.perf_counter() - t0
+    log(f'brute-force tables (brute_tiles.tables_for, host): moving open '
+        f'scene {build_s["motion"]:.3f} s, static box {build_s["static"]:.3f}'
+        f' s')
     org, d, mn, mx = kernel_rays(scene, 65536, seed=7)
     rays = (org, d, torch.zeros_like(mn), mn, mx)
     for any_hit in (False, True):
@@ -1081,10 +1112,10 @@ def brute_phase(xml, xml_f):
         if not torch.equal(q if any_hit else q[1], k if any_hit else k[1]):
             raise AssertionError(f'brute_{key}_box: the switch\'s query '
                                  f'differs from the kernel')
-        rows[key]['static_box'] = {
-            k: row[k] for k in ('rays', 'live', 'tests', 'splits', 'ms',
-                                'ms_launches', 'plain_ms', 'bound_ms',
-                                'bound_by')}
+        rows[key]['static_box'] = {k: row[k] for k in BRUTE_KEYS}
+        rows[key]['static_box']['ptxas'] = [k for k in ptxas
+                                            if 'ILb0E' in k['name']]
+        rows[key]['tables_build_s'] = build_s
     return rows
 
 

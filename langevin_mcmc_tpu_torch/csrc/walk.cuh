@@ -44,7 +44,8 @@
 //    kernel (_block_chunk_lists, or the sweep's _chunk_mask), in its order,
 //    NaN propagating as torch.minimum / amax do; ORs per chunk by warp
 //    ballot into a shared bit mask; and compacts the set bits into an
-//    ascending list: no [R, K, 3] temporaries, argsort or list tensors.
+//    ascending list (blocklist.cuh, shared with the brute force): no
+//    [R, K, 3] temporaries, argsort or list tensors.
 //  * The rows, by Form::kResident:
 //    - staged: tiles of 128 triangles arrive through a ring of two
 //      shared-memory buffers filled by cp.async, tile j + 1 in flight while
@@ -70,6 +71,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "blocklist.cuh"
+
 namespace {
 
 constexpr int kRayBlock = 256;
@@ -88,22 +91,6 @@ struct Stage {
   float4 rows[kRows * kTile / 4];  // row m of triangles 4g..4g+3: [m*32+g]
   int4 ids[kTile / 4];
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Start the copies of tile `sub` (triangles 128 sub .. 128 sub + 127) of
 // chunk cid of a pack of Chunk-triangle chunks: rows 0-12 and ids, 448 x 16
@@ -126,20 +113,6 @@ __device__ __forceinline__ void stage_tile(Stage& st, const float* pack,
       cp_async16(&st.ids[e - kRowVecs], tri_ids + 4 * (e - kRowVecs));
     }
   }
-}
-
-// torch.minimum / torch.maximum / amax / amin return NaN when an operand
-// is NaN; fminf / fmaxf would return the other operand.
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return isnan(a) ? a : (isnan(b) ? b : fminf(a, b));
-}
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
-}
-
-__device__ __forceinline__ float safe_dir(float d) {
-  return fabsf(d) < 1e-12f ? (d < 0.0f ? -1e-12f : 1e-12f) : d;
 }
 
 __device__ __forceinline__ float lane(const float4& v, int q) {
@@ -188,7 +161,6 @@ walk_kernel(const float* __restrict__ pack, const int* __restrict__ ids,
   const int c1 =
       static_cast<int>(static_cast<int64_t>(s + 1) * num_chunks / splits);
   const int len = c1 - c0;
-  const int words = (len + 31) / 32;
 
   const int64_t r = static_cast<int64_t>(b) * kRayBlock + tid;
   const float ox = org[3 * r + 0], oy = org[3 * r + 1], oz = org[3 * r + 2];
@@ -199,7 +171,7 @@ walk_kernel(const float* __restrict__ pack, const int* __restrict__ ids,
   const bool alive = mx >= mn;
 
   // 1. this range's part of the block's chunk list
-  for (int w = tid; w < words; w += kRayBlock) s_mask[w] = 0u;
+  list_clear<kRayBlock>(s_mask, len, tid);
   __syncthreads();
   {
     const float ix = 1.0f / safe_dir(dx);
@@ -212,33 +184,19 @@ walk_kernel(const float* __restrict__ pack, const int* __restrict__ ids,
       const float hx = __ldg(chunk_hi + 3 * c + 0);
       const float hy = __ldg(chunk_hi + 3 * c + 1);
       const float hz = __ldg(chunk_hi + 3 * c + 2);
-      const float t0x = (lx - ox) * ix, t1x = (hx - ox) * ix;
-      const float t0y = (ly - oy) * iy, t1y = (hy - oy) * iy;
-      const float t0z = (lz - oz) * iz, t1z = (hz - oz) * iz;
-      const float tn = nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)),
-                               nan_min(t0z, t1z));
-      const float tf = nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)),
-                               nan_max(t0z, t1z));
+      float tn, tf;
+      slab(lx, ly, lz, hx, hy, hz, ox, oy, oz, ix, iy, iz, &tn, &tf);
       const bool hit = tn <= tf && tf >= mn && tn <= mx &&
                        (alive || !Form::kListAlive);
-      if (__ballot_sync(0xffffffffu, hit) != 0u && (tid & 31) == 0) {
-        atomicOr(&s_mask[(c - c0) >> 5], 1u << ((c - c0) & 31));
-      }
+      list_mark(s_mask, c - c0, hit);
     }
   }
   __syncthreads();
-  int n = 0;
-  for (int w = 0; w < words; ++w) n += __popc(s_mask[w]);
-  for (int k = tid; k < len; k += kRayBlock) {
-    const unsigned word = s_mask[k >> 5];
-    const bool hit = (word >> (k & 31)) & 1u;
-    if (hit) {
-      int pos = __popc(word & ((1u << (k & 31)) - 1u));
-      for (int w = 0; w < (k >> 5); ++w) pos += __popc(s_mask[w]);
-      s_list[pos] = c0 + k;
-    }
-    if (chunk_mask != nullptr) {
-      chunk_mask[static_cast<int64_t>(b) * num_chunks + c0 + k] = hit;
+  const int n = list_compact<kRayBlock>(s_mask, len, c0, s_list, tid);
+  if (chunk_mask != nullptr) {
+    for (int k = tid; k < len; k += kRayBlock) {
+      chunk_mask[static_cast<int64_t>(b) * num_chunks + c0 + k] =
+          list_bit(s_mask, k);
     }
   }
   __syncthreads();

@@ -38,10 +38,13 @@ _WALK = [_P] * 7 + [_I] * 4 + [_P] * 10 + [_P]
 # reference, the leaf-ordered triangles and their count, the rays, (rays,
 # motion, any_hit), the closest hit's outputs, occluded, the stream
 _BVH = [_P, _I, _P, _I] + [_P] * 5 + [_I] * 3 + [_P] * 5 + [_P]
-# the brute force (csrc/brute.cu): the triangles and their count, the
+# the brute force (csrc/brute.cu): its tables (tris, screen, tiles, bands)
+# and the scene's triangles, (triangles, tiles, bins), kappa and mu, the
 # rays, (rays, splits, motion, any_hit), the ranges' partials, the closest
-# hit's outputs, occluded, the stream
-_BRUTE = [_P, _I] + [_P] * 5 + [_I] * 4 + [_P] * 9 + [_P]
+# hit's outputs, the any hit's flags, the stream
+_F = ctypes.c_float
+_BRUTE = [_P] * 5 + [_I] * 3 + [_F] * 2 + [_P] * 5 + [_I] * 4 + [_P] * 9 \
+    + [_P]
 SIGNATURES = {'chunkwalk_staged': _WALK, 'chunkwalk_resident': _WALK,
               'sweep_walk': _WALK, 'bvh_traverse': _BVH,
               'brute_force': _BRUTE}

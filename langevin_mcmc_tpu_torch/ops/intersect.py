@@ -33,13 +33,14 @@ TRI_CHUNK = 1024
 # ray-triangle pairs one block of the plain brute force holds: a moving
 # scene materialises [rays, TRI_CHUNK, 3, 3] lerped vertices a block
 PAIR_BLOCK = 1 << 22
-# rays a block of the brute-force kernel (csrc/brute.cu kThreads), and the
-# CTAs its triangle ranges aim at: about 31 blocks of 128 rays for each of
-# the H100's 132 SMs, which hold 9 each at the kernel's 56 registers a
-# thread: a query of a few thousand rays needs tens of ranges to fill the
-# card (chip_smoke.py times S at 65,536 and 4,260 rays; PERF.md)
+# rays a block of the brute-force kernel (csrc/brute.cu kRays, also the
+# triangles of a tile: brute_tiles.TILE), the CTAs its tile ranges aim at
+# (a query of the large step's few thousand rays still fills the H100's
+# 132 SMs; chip_smoke.py times S at 65,536 and 4,260 rays) and the most
+# tiles one range may hold (kMaxTiles)
 BRUTE_RAYS = 128
 BRUTE_CTAS = 4096
+BRUTE_MAX_TILES = 512
 # rays of one block of the matmul sweep: each 1024-triangle chunk makes two
 # [rays, 3072] f32 products, 0.8 GB at this many rays, so a chunk's
 # temporaries stay near 1.3 GB at the flagship's 65,536-ray queries (two
@@ -228,58 +229,76 @@ def _bruteforce_block(scene, org, d, time, min_t, max_t):
 
 
 def brute_splits(num_rays, num_tris):
-    """S, the triangle ranges of the brute-force kernel: about BRUTE_CTAS
-    CTAs at any ray count, each range a whole number of 128-triangle
-    tiles and none empty."""
+    """S, the tile ranges of the brute-force kernel: about BRUTE_CTAS
+    CTAs at any ray count, at most BRUTE_MAX_TILES tiles a range, none
+    empty."""
     tiles = max(-(-num_tris // BRUTE_RAYS), 1)
     blocks = max(-(-num_rays // BRUTE_RAYS), 1)
-    s = max(1, min(tiles, -(-BRUTE_CTAS // blocks)))
-    return -(-tiles // -(-tiles // s))
+    s = max(-(-BRUTE_CTAS // blocks), -(-tiles // BRUTE_MAX_TILES))
+    return max(1, min(s, tiles))
 
 
 def brute_force(scene, org, d, time, min_t, max_t, any_hit, splits=None):
     """The brute-force kernel (csrc/brute.cu) on CUDA tensors: (t, id, u,
     v) per ray (t = inf, the rest 0 where nothing is hit) or, with
-    any_hit, occluded (bool). splits: the triangle ranges S (default
-    brute_splits; the answer does not depend on it). Reads
-    scene.tri_p [2, T, 3, 3] as it is (both keyframes on a moving scene);
-    raises on inputs the kernel does not take and on a failed launch."""
+    any_hit, occluded (bool); counted once in launch_counts, and no
+    host read. splits: the tile ranges S (default brute_splits; the
+    answer does not depend on it). Reads scene.brute, the tables of
+    scene.tri_p (ops/brute_tiles.py; build_scene builds them for a moving
+    scene, and for a static one when LMCMC_ISECT_BACKEND=brute); raises
+    without them or on tables of other triangles, on inputs the kernel
+    does not take and on a failed launch."""
+    bt = scene.brute
+    if bt is None or bt.tri_p is not scene.tri_p:
+        raise ValueError('scene.brute does not hold the tables of '
+                         'scene.tri_p: build them (brute_tiles.attach)')
     dev = org.device
     R, T = org.shape[0], scene.num_tris
+    K = bt.tiles.shape[0]
+    nb = bt.screen.shape[0]
+    rows = 6 if bt.motion else 3
     check = cuda_build.check
     check(scene.tri_p, 'tri_p', torch.float32, (2, T, 3, 3), dev)
+    check(bt.tris, 'tris', torch.float32, (K * BRUTE_RAYS, rows, 4), dev)
+    check(bt.screen, 'screen', torch.float32, (nb, K * BRUTE_RAYS, 4), dev)
+    check(bt.tiles, 'tiles', torch.float32, (K, 3, 4), dev)
+    check(bt.bands, 'bands', torch.float32, (nb, K, 4, 4), dev)
+    if bt.motion != scene.has_motion or T < 1:
+        raise ValueError(f'brute tables of motion={bt.motion} for a scene '
+                         f'of motion={scene.has_motion}, {T} triangles')
     org, d, time, min_t, max_t = (x.contiguous() for x in
                                   (org, d, time, min_t, max_t))
     check(org, 'org', torch.float32, (R, 3), dev)
     check(d, 'dir', torch.float32, (R, 3), dev)
     for x, name in ((time, 'time'), (min_t, 'min_t'), (max_t, 'max_t')):
         check(x, name, torch.float32, (R,), dev)
-    tiles = -(-T // BRUTE_RAYS)
     S = brute_splits(R, T) if splits is None else splits
-    if not 1 <= S <= tiles:
-        raise ValueError(f'{S} triangle ranges of {tiles} tiles')
-    part_t = torch.empty((S, R), dtype=torch.float32, device=dev)
+    if not 1 <= S <= K or S * BRUTE_MAX_TILES < K:
+        raise ValueError(f'{S} tile ranges of {K} tiles')
     if any_hit:
-        out = occ = torch.empty(R, dtype=torch.bool, device=dev)
-        part = (part_t, None, None, None)
-        res = (None,) * 4
+        flags = torch.zeros(R, dtype=torch.int32, device=dev)
+        part = res = (None,) * 4
     else:
-        part = (part_t, torch.empty((S, R), dtype=torch.int32, device=dev),
-                torch.empty((S, R), dtype=torch.float32, device=dev),
-                torch.empty((S, R), dtype=torch.float32, device=dev))
-        out = res = (torch.empty(R, dtype=torch.float32, device=dev),
-                     torch.empty(R, dtype=torch.int32, device=dev),
-                     torch.empty(R, dtype=torch.float32, device=dev),
-                     torch.empty(R, dtype=torch.float32, device=dev))
-        occ = None
+        flags = None
+        res = (torch.empty(R, dtype=torch.float32, device=dev),
+               torch.empty(R, dtype=torch.int32, device=dev),
+               torch.empty(R, dtype=torch.float32, device=dev),
+               torch.empty(R, dtype=torch.float32, device=dev))
+        # the ranges' partials; the kernel writes res itself when S = 1
+        part = [torch.empty((S if S > 1 else 0, R), dtype=x.dtype,
+                            device=dev) for x in res]
     ptr = lambda x: None if x is None else x.data_ptr()
     err = cuda_build.load_library().brute_force(
-        ptr(scene.tri_p), T, *map(ptr, (org, d, time, min_t, max_t)), R, S,
-        int(scene.has_motion), int(any_hit), *map(ptr, part),
-        *map(ptr, res), ptr(occ), cuda_build.stream_of(dev))
+        *map(ptr, (bt.tris, bt.screen, bt.tiles, bt.bands, scene.tri_p)),
+        T, K, nb, bt.kappa, bt.mu,
+        *map(ptr, (org, d, time, min_t, max_t)), R, S,
+        int(bt.motion), int(any_hit), *map(ptr, part), *map(ptr, res),
+        ptr(flags), cuda_build.stream_of(dev))
     cuda_build.raise_on_error(err, f'brute_force (any_hit={any_hit})')
     launch_counts['any_hit' if any_hit else 'closest_hit'] += 1
-    return out
+    # bit 0: a finite hit; bit 1: one at t = -inf (then the least t is
+    # not finite: no hit)
+    return flags == 1 if any_hit else res
 
 
 def intersect_matmul(scene, org, d, time, min_t, max_t):

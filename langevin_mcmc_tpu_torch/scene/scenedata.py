@@ -11,6 +11,7 @@ bits.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -128,6 +129,8 @@ class SceneData:
     bvh_prim_ids: torch.Tensor = None  # [T] int32 leaf-order triangle ids
     bvh_packed: object = None   # ops/bvh.PackedBVH, the kernel's tables
     use_bvh: bool = False
+    # the brute-force kernel's tables of tri_p (ops/brute_tiles.py)
+    brute: object = None
 
 
 def build_env_sample_info(img):
@@ -231,8 +234,11 @@ def build_scene(host, device='cuda'):
     device='cpu'. Both keyframes of tri_p and tri_n go to the device; the
     packed rows, the walk tables and the matmul sweep's Woop frames
     (isect_B/C/ok) hold keyframe 0, which is all a static scene reads and
-    a moving one reads only under LMCMC_ISECT_BACKEND=matmul."""
-    from ..ops import bvh, chunkwalk, sweep_isect
+    a moving one reads only under LMCMC_ISECT_BACKEND=matmul. The
+    brute-force kernel's tables (ops/brute_tiles.py) are built for a
+    moving scene, whose queries take that kernel, and for a static one
+    only when LMCMC_ISECT_BACKEND=brute (else brute_tiles.attach)."""
+    from ..ops import brute_tiles, bvh, chunkwalk, sweep_isect
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to build the "
@@ -266,8 +272,9 @@ def build_scene(host, device='cuda'):
                            np.float32))
     bvh_prim_ids = t(np.array(host.get('bvh_prim_ids',
                                        np.arange(tri_p.shape[1])), np.int32))
+    tri_p_t = t(tri_p)
     return SceneData(
-        tri_p=t(tri_p), tri_n=f32('tri_n'), tri_st=f32('tri_st'),
+        tri_p=tri_p_t, tri_n=f32('tri_n'), tri_st=f32('tri_st'),
         tri_mat=i32('tri_mat'), tri_light=i32('tri_light'),
         tri_geom=t(build_tri_geom(tri_p[0], tri_n[0], tri_st)),
         isect_B=f32('isect_B'), isect_C=f32('isect_C'),
@@ -310,6 +317,9 @@ def build_scene(host, device='cuda'):
         height=cam.height, light_weight_sum=float(lw.sum()),
         device=device,
         bvh_nodes=bvh_nodes, bvh_prim_ids=bvh_prim_ids,
-        bvh_packed=bvh.pack_bvh(bvh_nodes, bvh_prim_ids, t(tri_p))
+        bvh_packed=bvh.pack_bvh(bvh_nodes, bvh_prim_ids, tri_p_t)
         if use_bvh else None,
-        use_bvh=use_bvh)
+        use_bvh=use_bvh,
+        brute=brute_tiles.tables_for(tri_p_t, bool(host['has_motion']))
+        if host['has_motion']
+        or os.environ.get('LMCMC_ISECT_BACKEND') == 'brute' else None)

@@ -10,11 +10,11 @@ file, so it also runs on a machine with a card and no JAX):
 * on a card (marked `cuda`, skipped elsewhere): the kernel equals the
   plain version bit for bit (t, id, u, v; occluded), closest and any
   hit, on the small box and the small moving open scene at 65,536 and
-  4,260 rays, whatever its number of triangle ranges; on exact copies of
-  a triangle planted in one 128-triangle tile and in two tiles (the
-  smaller id wins); on rays that are all dead or dead by whole blocks; on
-  rays from 1e37 away with max_t = inf; one launch counted per query;
-  inputs the kernel does not take raise;
+  4,260 rays, whatever its number of tile ranges; on exact copies of a
+  triangle planted 40 and 131 ids on (the smaller id wins); on rays that
+  are all dead or dead by whole blocks; on rays from 1e37 away with
+  max_t = inf; one launch counted per query; inputs the kernel does not
+  take raise;
 * on a card, a brute-force query and a matmul-sweep query captured in a
   CUDA graph and replayed equal the eager ones: neither reads the host.
 """
@@ -25,7 +25,7 @@ import pytest
 import torch
 
 from langevin_mcmc_tpu_torch import testscenes
-from langevin_mcmc_tpu_torch.ops import intersect
+from langevin_mcmc_tpu_torch.ops import brute_tiles, intersect
 from langevin_mcmc_tpu_torch.parallel.mesh import ChainMesh, replicate
 from langevin_mcmc_tpu_torch.scene.parse import parse_scene
 from langevin_mcmc_tpu_torch.utils import vecmath as vm
@@ -44,7 +44,9 @@ def scene(request, tmp_path_factory):
     sc = parse_scene(xml, device='cpu')[0]
     assert sc.has_motion == (request.param == 'motion')
     assert sc.num_tris > 2 * intersect.BRUTE_RAYS
-    return sc
+    # a static scene carries the kernel's tables only when built for
+    # LMCMC_ISECT_BACKEND=brute
+    return sc if sc.has_motion else brute_tiles.attach(sc)
 
 
 def _rays(scene, n, device, seed=5):
@@ -172,8 +174,9 @@ def test_kernel_splits_on_card(scene, any_hit):
 @pytest.mark.cuda
 @pytest.mark.parametrize('where', ['one_tile', 'two_tiles'])
 def test_kernel_planted_ties_on_card(scene, where):
-    """Exact copies of a triangle (both keyframes) at a larger id in the
-    same 128-triangle tile, or in the next tile: rays onto it hit the
+    """Exact copies of a triangle (both keyframes) at a larger id, 40 or
+    131 ids on (the same or the next 128-triangle range of ids), the
+    kernel's tables rebuilt for the new triangles: rays onto it hit the
     original, the smallest id among the minimal t, in kernel and plain
     version alike."""
     sc = _on_card(scene)
@@ -181,7 +184,7 @@ def test_kernel_planted_ties_on_card(scene, where):
     at = tie + 40 if where == 'one_tile' else tie + intersect.BRUTE_RAYS + 3
     tp = sc.tri_p.clone()
     tp[:, at] = tp[:, tie]
-    sc = dataclasses.replace(sc, tri_p=tp)
+    sc = brute_tiles.attach(dataclasses.replace(sc, tri_p=tp))
     n = 1000
     g = torch.Generator().manual_seed(4)
     b = torch.rand((n, 2), generator=g) * 0.4 + 0.1
