@@ -10,6 +10,12 @@ between two keyframes. Writes <output>_timeuse_<seconds>s.exr and .png into
 of a single-process MCMC render. Renders on the card; on a machine without
 one, --device cpu must be given.
 
+--trace FILE turns the trace registry on (ops/tracing) before the first
+render, writes its host spans to FILE as a Chrome-trace JSON when the
+last has ended, and puts each render's stages in its timings
+('stages_ms': self and inclusive milliseconds and the intervals of each
+span).
+
 Multi-process: one process per rank with --coordinator host:port
 --num-processes N --process-id i (each rank on cuda:{i % cards}); an MCMC
 scene then renders with its chains sharded over the ranks
@@ -53,6 +59,9 @@ def main(argv=None):
                    help='multi-process rank count')
     p.add_argument('--process-id', type=int, default=None,
                    help='this process\'s rank (multi-process)')
+    p.add_argument('--trace', default=None, metavar='FILE',
+                   help='trace the renders: host spans to FILE (Chrome '
+                        'trace JSON), stage times in the timings')
     args = p.parse_args(argv)
 
     import torch
@@ -70,7 +79,10 @@ def main(argv=None):
     from .scene.parse import parse_scene, parse_scene_host
     from .integrators.pathtrace import render_mc
     from .integrators.mlt import render_mlt
+    from .ops import tracing
     from .utils import image_io
+    if args.trace:
+        tracing.enable(device)
 
     results = []
     for scene_file in args.scenes:
@@ -93,6 +105,7 @@ def main(argv=None):
         gen.manual_seed(opts.seed_offset)
 
         timings, parts = {}, {}
+        traced0 = tracing.snapshot() if args.trace else None
         t0 = time.time()
         with torch.no_grad():
             if opts.integrator == 'mc':
@@ -109,6 +122,9 @@ def main(argv=None):
                         args.output_dir, 'intermediate'))
         film = film.cpu().numpy()
         elapsed = time.time() - t0
+        if args.trace:
+            timings['stages_ms'] = tracing.stages_ms(
+                tracing.delta(traced0, tracing.snapshot()))
         if b is not None:
             print(f'Average brightness:{b}')
         print(f'Elapsed time:{elapsed}')
@@ -122,6 +138,9 @@ def main(argv=None):
         results.append(dict(film=film, b=b, seconds=elapsed, timings=timings,
                             opts=opts, exr=hdr, png=ldr,
                             **{k: v.cpu().numpy() for k, v in parts.items()}))
+    if args.trace:
+        tracing.write_chrome_trace(args.trace)
+        print(f'wrote {args.trace}')
     return results
 
 

@@ -18,7 +18,6 @@ plain, multiplexed or cache-seeded large steps).
 
 import dataclasses
 import functools
-import time as _time
 
 import numpy as np
 import torch
@@ -27,6 +26,7 @@ from ..path import trace
 from ..path.records import to_subpath, _slot_tables
 from ..ops.film import splat
 from ..ops.graphs import StepGraphs, commit
+from ..ops import tracing
 from ..mcmc import chain as chain_mod
 from ..mcmc import cache as cache_mod
 from ..utils.distribution import Distribution1D
@@ -36,20 +36,28 @@ from .pathtrace import render_direct
 
 
 def bootstrap(scene, opts, generator, chunk=4096):
-    """Returns (b, length_dist, seed BankedState)."""
+    """Returns (b, length_dist, seed BankedState). Traced as the span
+    mlt.bootstrap, each generation pass as mlt.bootstrap.pass."""
+    with tracing.span('mlt.bootstrap'):
+        return _bootstrap(scene, opts, generator, chunk)
+
+
+def _bootstrap(scene, opts, generator, chunk):
     D = opts.max_depth
     n = opts.num_init_samples
     dev = scene.device
     min_depth = max(opts.min_depth, 3)
     recs, flats = [], []
     for start in range(0, n, chunk):
-        m = min(chunk, n - start)
-        tape = trace.draw_tape(generator, m, D, dev)
-        rec, con, _, _ = trace.generate_path_bidir(
-            scene, opts, tape, min_depth=min_depth, max_depth=opts.max_depth)
-        flat, s_tags, t_tags = con.flatten()
-        recs.append(rec)
-        flats.append(flat)
+        with tracing.span('mlt.bootstrap.pass'):
+            m = min(chunk, n - start)
+            tape = trace.draw_tape(generator, m, D, dev)
+            rec, con, _, _ = trace.generate_path_bidir(
+                scene, opts, tape, min_depth=min_depth,
+                max_depth=opts.max_depth)
+            flat, s_tags, t_tags = con.flatten()
+            recs.append(rec)
+            flats.append(flat)
     ls_dev = torch.cat([f['ls_score'] for f in flats], 0)     # [n, NS]
     ls_all = ls_dev.double().cpu().numpy()
 
@@ -214,7 +222,10 @@ def make_mlt_step(scene, opts, normalization, ls_prob, length_dist=None,
     ones) and 'cache_accepts'.
 
     The step is static-shaped and reads nothing back to the host, as the
-    JAX package's jitted step: make_mlt_multi_step captures it."""
+    JAX package's jitted step: make_mlt_multi_step captures it. With
+    tracing on (ops/tracing) its stages are the spans mlt.large (the
+    large-step lanes, their step and scatter), mlt.small (the small step),
+    mlt.splat and mlt.commit (accept/reject and the state commit)."""
     C = opts.num_chains
     D = opts.max_depth
     Dm = 2 * D
@@ -262,191 +273,202 @@ def make_mlt_step(scene, opts, normalization, ls_prob, length_dist=None,
         state = banked.state
         cache = banked.cache
         rand = lambda *s: torch.rand(s, generator=gen, device=dev)
-        u_large = rand(C)
-        want_large = (~state.valid) | (u_large < ls_prob)
-        if K < C:
-            sort_key = torch.where(want_large, 0.0, 2.0) + rand(C)
-            sel = torch.argsort(sort_key)[:K]
-        else:
-            sel = torch.arange(C, device=dev)
-        state_k = tree_take(state, sel)
-        prop_lk, a_lk = run_large(gen, state_k, cache)
-        did_large_k = want_large[sel]
-        a_lk = torch.where(did_large_k, a_lk, torch.zeros_like(a_lk))
-        count('large', did_large_k)
-        if kind != 'plain':
-            use_cache_k = prop_lk.get('use_cache',
-                                      torch.zeros_like(did_large_k))
-            count('mmlt', did_large_k & ~use_cache_k)
-            count('cache', did_large_k & use_cache_k)
+        with tracing.span('mlt.large'):
+            u_large = rand(C)
+            want_large = (~state.valid) | (u_large < ls_prob)
+            if K < C:
+                sort_key = torch.where(want_large, 0.0, 2.0) + rand(C)
+                sel = torch.argsort(sort_key)[:K]
+            else:
+                sel = torch.arange(C, device=dev)
+            state_k = tree_take(state, sel)
+            prop_lk, a_lk = run_large(gen, state_k, cache)
+            did_large_k = want_large[sel]
+            a_lk = torch.where(did_large_k, a_lk, torch.zeros_like(a_lk))
+            count('large', did_large_k)
+            if kind != 'plain':
+                use_cache_k = prop_lk.get('use_cache',
+                                          torch.zeros_like(did_large_k))
+                count('mmlt', did_large_k & ~use_cache_k)
+                count('cache', did_large_k & use_cache_k)
 
-        def scat(x):
-            full = torch.zeros((C,) + x.shape[1:], dtype=x.dtype, device=dev)
-            full[sel] = x
-            return full
+            def scat(x):
+                full = torch.zeros((C,) + x.shape[1:], dtype=x.dtype,
+                                   device=dev)
+                full[sel] = x
+                return full
 
-        is_large = scat(did_large_k)
-        a_l = scat(a_lk)
-        prop_l = {k: (tree_map(scat, v) if k == 'rec' else scat(v))
-                  for k, v in prop_lk.items()
-                  if k not in ('all_flat', 'use_cache')}
+            is_large = scat(did_large_k)
+            a_l = scat(a_lk)
+            prop_l = {k: (tree_map(scat, v) if k == 'rec' else scat(v))
+                      for k, v in prop_lk.items()
+                      if k not in ('all_flat', 'use_cache')}
 
-        # the iso kind proposes from the isotropic kernel on every lane;
-        # MALA's and H2MC's isotropic-mixing lanes share their single replay
-        use_iso = torch.ones(C, dtype=torch.bool, device=dev) \
-            if small == 'iso' else rand(C) < opts.uniform_mixing_probability
-        z = torch.randn((C, Dm), generator=gen, device=dev)
-        noise = chain_mod.perturb_noise(gen, C, D, opts, dev)
-        if small == 'iso':
-            prop_adv, a_small = chain_mod.small_step_iso(
-                scene, opts, state, z * opts.perturb_std_dev, noise)
-        elif small == 'h2mc':
-            prop_adv, a_small = chain_mod.small_step_h2mc(
-                scene, opts, state, z, noise, use_iso=use_iso,
-                skip_lanes=is_large)
-        else:
-            prop_adv, a_small = chain_mod.small_step_mala(
-                scene, opts, state, z, noise, cache=cache, use_iso=use_iso,
-                skip_lanes=is_large)
-        a = torch.where(is_large, a_l, a_small)
+        with tracing.span('mlt.small'):
+            # the iso kind proposes from the isotropic kernel on every lane;
+            # MALA's and H2MC's isotropic-mixing lanes share their single
+            # replay
+            use_iso = torch.ones(C, dtype=torch.bool, device=dev) \
+                if small == 'iso' \
+                else rand(C) < opts.uniform_mixing_probability
+            z = torch.randn((C, Dm), generator=gen, device=dev)
+            noise = chain_mod.perturb_noise(gen, C, D, opts, dev)
+            if small == 'iso':
+                prop_adv, a_small = chain_mod.small_step_iso(
+                    scene, opts, state, z * opts.perturb_std_dev, noise)
+            elif small == 'h2mc':
+                prop_adv, a_small = chain_mod.small_step_h2mc(
+                    scene, opts, state, z, noise, use_iso=use_iso,
+                    skip_lanes=is_large)
+            else:
+                prop_adv, a_small = chain_mod.small_step_mala(
+                    scene, opts, state, z, noise, cache=cache, use_iso=use_iso,
+                    skip_lanes=is_large)
+            a = torch.where(is_large, a_l, a_small)
 
-        # ---- splats: one merged index_add ----
-        small_screen = prop_adv['screen']
-        small_contrib = prop_adv['contrib']
-        small_ls = prop_adv['ls']
-        zero = torch.zeros_like(a)
-        w_cur = torch.where(state.valid, 1.0 - a, zero)
-        small_w = torch.where((~is_large) & (a > 0.0),
-                              a * normalization
-                              / torch.clamp(small_ls, min=1e-12), zero)
-        if kind == 'plain':
-            # every technique of the large proposal, collapsed
-            lf = prop_lk['all_flat']
-            inv_ss = 1.0 / torch.clamp(prop_lk['score_sum'], min=1e-12)
-            lscr_k, lctr_k = collapse_flat(
-                lf, D,
-                torch.where(a_lk > 0.0, a_lk * normalization * inv_ss,
-                            torch.zeros_like(a_lk)))
-            bscr_k, bctr_k = collapse_flat(lf, D, normalization * inv_ss)
-        else:
-            # multiplexed / cache-seeded: the one technique of each lane
-            inv_ls = normalization / torch.clamp(prop_lk['ls'], min=1e-12)
-            w_k = torch.where(a_lk > 0.0, a_lk * inv_ls,
-                              torch.zeros_like(a_lk))
-            lscr_k = bscr_k = prop_lk['screen'][:, None]
-            lctr_k = (prop_lk['contrib'] * w_k[:, None])[:, None]
-            bctr_k = (prop_lk['contrib'] * inv_ls[:, None])[:, None]
-        shard_idx = None
-        if lane_shard is not None:
-            # the bank's NB points, the small step's one and the large
-            # step's (K-compact) points per lane, each in its lane's shard
-            shard_idx = torch.cat([
-                lane_shard.repeat_interleave(NB), lane_shard,
-                lane_shard[sel].repeat_interleave(lscr_k.shape[1])])
-        splat(film,
-              torch.cat([banked.bank_screen.reshape(-1, 2), small_screen,
-                         lscr_k.reshape(-1, 2)]),
-              torch.cat([(banked.bank_contrib
-                          * w_cur[:, None, None]).reshape(-1, 3),
-                         small_contrib * small_w[:, None],
-                         lctr_k.reshape(-1, 3)]), shard_idx=shard_idx)
-        lbank_scr = scat(bscr_k)
-        lbank_ctr = scat(bctr_k)
+        with tracing.span('mlt.splat'):
+            # ---- splats: one merged index_add ----
+            small_screen = prop_adv['screen']
+            small_contrib = prop_adv['contrib']
+            small_ls = prop_adv['ls']
+            zero = torch.zeros_like(a)
+            w_cur = torch.where(state.valid, 1.0 - a, zero)
+            small_w = torch.where((~is_large) & (a > 0.0),
+                                  a * normalization
+                                  / torch.clamp(small_ls, min=1e-12), zero)
+            if kind == 'plain':
+                # every technique of the large proposal, collapsed
+                lf = prop_lk['all_flat']
+                inv_ss = 1.0 / torch.clamp(prop_lk['score_sum'], min=1e-12)
+                lscr_k, lctr_k = collapse_flat(
+                    lf, D,
+                    torch.where(a_lk > 0.0, a_lk * normalization * inv_ss,
+                                torch.zeros_like(a_lk)))
+                bscr_k, bctr_k = collapse_flat(lf, D, normalization * inv_ss)
+            else:
+                # multiplexed / cache-seeded: the one technique of each lane
+                inv_ls = normalization / torch.clamp(prop_lk['ls'], min=1e-12)
+                w_k = torch.where(a_lk > 0.0, a_lk * inv_ls,
+                                  torch.zeros_like(a_lk))
+                lscr_k = bscr_k = prop_lk['screen'][:, None]
+                lctr_k = (prop_lk['contrib'] * w_k[:, None])[:, None]
+                bctr_k = (prop_lk['contrib'] * inv_ls[:, None])[:, None]
+            shard_idx = None
+            if lane_shard is not None:
+                # the bank's NB points, the small step's one and the large
+                # step's (K-compact) points per lane, each in its lane's shard
+                shard_idx = torch.cat([
+                    lane_shard.repeat_interleave(NB), lane_shard,
+                    lane_shard[sel].repeat_interleave(lscr_k.shape[1])])
+            splat(film,
+                  torch.cat([banked.bank_screen.reshape(-1, 2), small_screen,
+                             lscr_k.reshape(-1, 2)]),
+                  torch.cat([(banked.bank_contrib
+                              * w_cur[:, None, None]).reshape(-1, 3),
+                             small_contrib * small_w[:, None],
+                             lctr_k.reshape(-1, 3)]), shard_idx=shard_idx)
+            lbank_scr = scat(bscr_k)
+            lbank_ctr = scat(bctr_k)
 
-        # ---- accept / reject ----
-        acc = (a > 0.0) & (rand(C) <= a)
-        count('accepts', acc)
-        if kind == 'cache':
-            count('cache_accepts', acc[sel] & did_large_k & use_cache_k)
-        prop_rec = chain_mod._where_state(is_large, prop_l['rec'],
-                                          prop_adv['rec'])
-        prop_contrib = torch.where(is_large[:, None], prop_l['contrib'],
-                                   small_contrib)
-        prop_screen = torch.where(is_large[:, None], prop_l['screen'],
-                                  small_screen)
-        prop_ls = torch.where(is_large, prop_l['ls'], small_ls)
-        prop_ss = torch.where(is_large, prop_l['ss'], prop_adv['ss'])
-        prop_score_sum = torch.where(is_large, prop_l['score_sum'],
-                                     state.score_sum)
-        acc_large = acc & is_large
-        acc_small = acc & ~is_large
-        acc_small_adv = acc_small & ~use_iso
+        with tracing.span('mlt.commit'):
+            # ---- accept / reject ----
+            acc = (a > 0.0) & (rand(C) <= a)
+            count('accepts', acc)
+            if kind == 'cache':
+                count('cache_accepts', acc[sel] & did_large_k & use_cache_k)
+            prop_rec = chain_mod._where_state(is_large, prop_l['rec'],
+                                              prop_adv['rec'])
+            prop_contrib = torch.where(is_large[:, None], prop_l['contrib'],
+                                       small_contrib)
+            prop_screen = torch.where(is_large[:, None], prop_l['screen'],
+                                      small_screen)
+            prop_ls = torch.where(is_large, prop_l['ls'], small_ls)
+            prop_ss = torch.where(is_large, prop_l['ss'], prop_adv['ss'])
+            prop_score_sum = torch.where(is_large, prop_l['score_sum'],
+                                         state.score_sum)
+            acc_large = acc & is_large
+            acc_small = acc & ~is_large
+            acc_small_adv = acc_small & ~use_iso
 
-        sbank_scr = torch.zeros((C, NB, 2), device=dev)
-        sbank_scr[:, 0] = small_screen
-        sbank_ctr = torch.zeros((C, NB, 3), device=dev)
-        sbank_ctr[:, 0] = small_contrib * (
-            normalization / torch.clamp(small_ls, min=1e-12))[:, None]
-        al = acc_large[:, None, None]
-        asm = acc_small[:, None, None]
-        new_bank_scr = torch.where(al, lbank_scr, torch.where(
-            asm, sbank_scr, banked.bank_screen))
-        new_bank_ctr = torch.where(al, lbank_ctr, torch.where(
-            asm, sbank_ctr, banked.bank_contrib))
+            sbank_scr = torch.zeros((C, NB, 2), device=dev)
+            sbank_scr[:, 0] = small_screen
+            sbank_ctr = torch.zeros((C, NB, 3), device=dev)
+            sbank_ctr[:, 0] = small_contrib * (
+                normalization / torch.clamp(small_ls, min=1e-12))[:, None]
+            al = acc_large[:, None, None]
+            asm = acc_small[:, None, None]
+            new_bank_scr = torch.where(al, lbank_scr, torch.where(
+                asm, sbank_scr, banked.bank_screen))
+            new_bank_ctr = torch.where(al, lbank_ctr, torch.where(
+                asm, sbank_ctr, banked.bank_contrib))
 
-        # the current-side Gaussian is committed only where it was really
-        # evaluated (cur_ok); gaussianInitialized clears on large-step and
-        # iso accepts
-        ran_adv = ~is_large & ~use_iso
-        if small == 'iso':
-            # no Gaussian: any accept clears gaussianInitialized
-            new_gauss = state.gaussian
-            new_gauss_init = torch.where(acc, torch.zeros_like(acc),
-                                         state.gaussian_init)
-        else:
-            cur_ok = prop_adv['cur_ok']
-            new_gauss = chain_mod._where_gauss(
-                acc_small_adv, prop_adv['gauss_prop'],
-                chain_mod._where_gauss(ran_adv & cur_ok,
-                                       prop_adv['gauss_cur'], state.gaussian))
-            new_gauss_init = torch.where(
-                acc_large | (acc_small & use_iso), torch.zeros_like(acc),
-                torch.where(ran_adv, acc_small_adv | cur_ok,
-                            state.gaussian_init))
-        # only MALA keeps moments, snapshots and the cache
-        moments = {}
-        if small == 'mala':
-            moments, cache = _mala_commit(state, prop_adv, cache, acc_large,
-                                          acc_small_adv, ran_adv, opts)
+            # the current-side Gaussian is committed only where it was really
+            # evaluated (cur_ok); gaussianInitialized clears on large-step and
+            # iso accepts
+            ran_adv = ~is_large & ~use_iso
+            if small == 'iso':
+                # no Gaussian: any accept clears gaussianInitialized
+                new_gauss = state.gaussian
+                new_gauss_init = torch.where(acc, torch.zeros_like(acc),
+                                             state.gaussian_init)
+            else:
+                cur_ok = prop_adv['cur_ok']
+                new_gauss = chain_mod._where_gauss(
+                    acc_small_adv, prop_adv['gauss_prop'],
+                    chain_mod._where_gauss(ran_adv & cur_ok,
+                                           prop_adv['gauss_cur'],
+                                           state.gaussian))
+                new_gauss_init = torch.where(
+                    acc_large | (acc_small & use_iso), torch.zeros_like(acc),
+                    torch.where(ran_adv, acc_small_adv | cur_ok,
+                                state.gaussian_init))
+            # only MALA keeps moments, snapshots and the cache
+            moments = {}
+            if small == 'mala':
+                moments, cache = _mala_commit(state, prop_adv, cache,
+                                              acc_large, acc_small_adv,
+                                              ran_adv, opts)
 
-        new_adj = torch.where(acc, torch.zeros_like(state.adjacent_reject),
-                              state.adjacent_reject + 1)
-        if opts.remove_outliers:
-            strong = state.ls_score > opts.outlier_ratio_threshold \
-                * normalization
-            reset = ((new_adj > opts.outlier_weak_reject_cnt)
-                     | (strong & (new_adj > opts.outlier_strong_reject_cnt)))
-        else:
-            reset = torch.zeros_like(acc)
+            new_adj = torch.where(acc, torch.zeros_like(state.adjacent_reject),
+                                  state.adjacent_reject + 1)
+            if opts.remove_outliers:
+                strong = state.ls_score > opts.outlier_ratio_threshold \
+                    * normalization
+                reset = ((new_adj > opts.outlier_weak_reject_cnt)
+                         | (strong
+                            & (new_adj > opts.outlier_strong_reject_cnt)))
+            else:
+                reset = torch.zeros_like(acc)
 
-        new_state = dataclasses.replace(
-            state, rec=chain_mod._where_state(acc, prop_rec, state.rec),
-            valid=state.valid | acc,
-            contrib=torch.where(acc[:, None], prop_contrib, state.contrib),
-            screen_pos=torch.where(acc[:, None], prop_screen,
-                                   state.screen_pos),
-            ls_score=torch.where(acc, prop_ls, state.ls_score),
-            ss_score=torch.where(acc, prop_ss, state.ss_score),
-            score_sum=torch.where(acc, prop_score_sum, state.score_sum),
-            stepsize=state.stepsize, gaussian=new_gauss,
-            gaussian_init=new_gauss_init,
-            last_score_sum=torch.where(acc_large, prop_l['score_sum'],
-                                       state.last_score_sum),
-            last_score=torch.where(acc_large, prop_l['ls'],
-                                   state.last_score),
-            adjacent_reject=new_adj, **moments)
-        reset_chain = dataclasses.replace(
-            init_banked.state, valid=torch.zeros_like(acc),
-            gaussian_init=torch.zeros_like(acc),
-            buffered=torch.zeros_like(acc))
-        new_state = chain_mod._where_state(reset, reset_chain, new_state)
-        rr = reset[:, None, None]
-        return BankedState(
-            state=new_state,
-            bank_screen=torch.where(rr, init_banked.bank_screen, new_bank_scr),
-            bank_contrib=torch.where(rr, init_banked.bank_contrib,
-                                     new_bank_ctr),
-            cache=cache)
+            new_state = dataclasses.replace(
+                state, rec=chain_mod._where_state(acc, prop_rec, state.rec),
+                valid=state.valid | acc,
+                contrib=torch.where(acc[:, None], prop_contrib, state.contrib),
+                screen_pos=torch.where(acc[:, None], prop_screen,
+                                       state.screen_pos),
+                ls_score=torch.where(acc, prop_ls, state.ls_score),
+                ss_score=torch.where(acc, prop_ss, state.ss_score),
+                score_sum=torch.where(acc, prop_score_sum, state.score_sum),
+                stepsize=state.stepsize, gaussian=new_gauss,
+                gaussian_init=new_gauss_init,
+                last_score_sum=torch.where(acc_large, prop_l['score_sum'],
+                                           state.last_score_sum),
+                last_score=torch.where(acc_large, prop_l['ls'],
+                                       state.last_score),
+                adjacent_reject=new_adj, **moments)
+            reset_chain = dataclasses.replace(
+                init_banked.state, valid=torch.zeros_like(acc),
+                gaussian_init=torch.zeros_like(acc),
+                buffered=torch.zeros_like(acc))
+            new_state = chain_mod._where_state(reset, reset_chain, new_state)
+            rr = reset[:, None, None]
+            return BankedState(
+                state=new_state,
+                bank_screen=torch.where(rr, init_banked.bank_screen,
+                                        new_bank_scr),
+                bank_contrib=torch.where(rr, init_banked.bank_contrib,
+                                         new_bank_ctr),
+                cache=cache)
 
     step.counts = counts
     return step
@@ -524,7 +546,9 @@ def make_mlt_multi_step(scene, opts, normalization, ls_prob, n_inner,
     iteration of multi); multi.graphs the StepGraphs once captured;
     multi.warmup_s and multi.capture_pass_s the host seconds of the
     warm-up iteration and of the iteration that captures (each between
-    two device syncs, once a multi-step)."""
+    two syncs of the device, once a multi-step; with tracing on, the
+    spans mlt.warmup and graphs.capture). With tracing on a call is the
+    host span mlt.call, numbered, and its state commit is in mlt.commit."""
     step = make_mlt_step(scene, opts, normalization, ls_prob,
                          length_dist=length_dist, film_shards=film_shards)
     return _MultiStep(step, scene.device, n_inner, pool)
@@ -547,6 +571,10 @@ class _MultiStep:
         return banked
 
     def __call__(self, gen, banked, film, init_banked):
+        with tracing.call_span():
+            return self._call(gen, banked, film, init_banked)
+
+    def _call(self, gen, banked, film, init_banked):
         self._n_done.zero_()
         if self._device.type != 'cuda':
             for _ in range(self._n_inner):
@@ -573,25 +601,24 @@ class _MultiStep:
                 st['init_src'] = init_banked
         sb, sf, si, graphs = st['banked'], st['film'], st['init'], \
             st['graphs']
-        one = lambda: commit(sb, self._body(gen, sb, sf, si))
+
+        def one():
+            new = self._body(gen, sb, sf, si)
+            with tracing.span('mlt.commit'):
+                commit(sb, new)
         if it:
-            self.warmup_s = _synced(lambda: graphs.run_eager(one))
+            _, self.warmup_s = tracing.timed(
+                lambda: graphs.run_eager(one), self._device,
+                name='mlt.warmup', stage=True)
         for _ in range(it, self._n_inner):
             if self.graphs is None:
-                self.capture_pass_s = _synced(lambda: graphs.capture(one))
+                _, self.capture_pass_s = tracing.timed(
+                    lambda: graphs.capture(one), self._device,
+                    name='graphs.capture')
                 self.graphs = graphs
             else:
                 graphs.replay()
         return sb, sf, self._n_done.clone()
-
-
-def _synced(fn):
-    """Host seconds of fn() between two device syncs."""
-    torch.cuda.synchronize()
-    t0 = _time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    return _time.perf_counter() - t0
 
 
 def render_mlt(scene, opts, generator, num_steps=None, progress=False,
@@ -624,26 +651,22 @@ def render_mlt(scene, opts, generator, num_steps=None, progress=False,
     call; their writes are timed apart from the chain loop
     (timings['report_s'])."""
     dev = scene.device
-    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == 'cuda' \
-        else (lambda: None)
     timings = {} if timings is None else timings
-    t0 = _time.time()
-    b, length_dist, banked = bootstrap(scene, opts, generator, chunk=chunk)
-    sync()
-    timings['bootstrap_s'] = _time.time() - t0
+    (b, length_dist, banked), timings['bootstrap_s'] = tracing.timed(
+        lambda: bootstrap(scene, opts, generator, chunk=chunk), dev)
     normalization = b
     C = opts.num_chains
     npix = scene.width * scene.height
     if num_steps is None:
         num_steps = max(opts.spp * npix // C, 1)
 
-    t0 = _time.time()
     if opts.direct_spp > 0:
-        direct = render_direct(scene, opts, generator, chunk=chunk)
+        direct, timings['direct_s'] = tracing.timed(
+            lambda: render_direct(scene, opts, generator, chunk=chunk), dev)
     else:
-        direct = torch.zeros((scene.height, scene.width, 3), device=dev)
-    sync()
-    timings['direct_s'] = _time.time() - t0
+        direct, timings['direct_s'] = tracing.timed(
+            lambda: torch.zeros((scene.height, scene.width, 3), device=dev),
+            dev)
 
     # two-phase large-step probability: after ls_ratio of the run it scales
     # by large_step_prob_scale (not for H2MC)
@@ -669,23 +692,26 @@ def render_mlt(scene, opts, generator, num_steps=None, progress=False,
     banked = attach_cache(banked, opts)
     n_done = torch.zeros((), dtype=torch.int64, device=dev)
     report_s = 0.0
-    t0 = _time.time()
-    for i in range(n_outer):
-        step = step1 if i <= phase_switch else step2
-        banked, film, nd = step(generator, banked, film, init_banked)
-        n_done += nd
-        if progress and i % max(n_outer // 10, 1) == 0:
-            print(f'mlt step {i * n_inner}/{num_steps}', flush=True)
-        done = (i + 1) * n_inner
-        if report_every and done % report_every == 0 and done < num_steps:
-            sync()
-            t_r = _time.time()
-            snap = (direct + film / (done * C / npix)).cpu().numpy()
-            image_io.write_image(f'{intermediate_path}.exr', snap)
-            image_io.write_image(f'{intermediate_path}.png', snap)
-            report_s += _time.time() - t_r
-    sync()
-    timings['loop_s'] = _time.time() - t0 - report_s
+
+    def report(done):
+        snap = (direct + film / (done * C / npix)).cpu().numpy()
+        image_io.write_image(f'{intermediate_path}.exr', snap)
+        image_io.write_image(f'{intermediate_path}.png', snap)
+
+    def loop():
+        nonlocal banked, film, n_done, report_s
+        for i in range(n_outer):
+            step = step1 if i <= phase_switch else step2
+            banked, film, nd = step(generator, banked, film, init_banked)
+            n_done += nd
+            if progress and i % max(n_outer // 10, 1) == 0:
+                print(f'mlt step {i * n_inner}/{num_steps}', flush=True)
+            done = (i + 1) * n_inner
+            if report_every and done % report_every == 0 \
+                    and done < num_steps:
+                report_s += tracing.timed(lambda: report(done), dev)[1]
+    _, loop_s = tracing.timed(loop, dev)
+    timings['loop_s'] = loop_s - report_s
     timings['report_s'] = report_s
     timings.update(steps=num_steps, n_done=int(n_done), n_inner=n_inner)
     for st in {step1, step2}:
@@ -701,26 +727,29 @@ def render_mlt(scene, opts, generator, num_steps=None, progress=False,
 
 def graph_stats(multis):
     """The captured graphs of multi-steps (make_mlt_multi_step) as
-    render_mlt's timings report them: graphs, eager calls between them
-    (and their functions' names), cond_call branches and nodes of one
-    step (the first captured); the branches' runs and skips, the
-    capture and instantiate seconds, the warm-ups and
-    their seconds and the seconds of the capturing iterations of all of
-    them. Empty when none was captured."""
+    render_mlt's timings report them, from the trace registry's record of
+    each StepGraphs (tracing.graph_record): graphs, eager calls between
+    them (and their functions' names), cond_call branches and nodes of
+    one step (the first captured); the branches' runs and skips, the
+    capture and instantiate seconds, the warm-ups and their seconds and
+    the seconds of the capturing iterations of all of them. Empty when
+    none was captured."""
     ms = list({id(m): m for m in multis}.values())
     caught = [m.graphs for m in ms if m.graphs is not None]
     if not caught:
         return {}
-    g = caught[0]
+    recs = [tracing.graph_record(g) for g in caught]
+    first = recs[0]
+    total = lambda k: sum(r[k] for r in recs)
     return dict(warmups=sum(m.warmup_s > 0 for m in ms),
                 warmup_s=sum(m.warmup_s for m in ms),
                 capture_pass_s=sum(m.capture_pass_s for m in ms),
-                graphs=len(g.graphs), eager_calls=len(g.calls),
+                graphs=first['graphs'], eager_calls=first['eager_calls'],
                 eager_fns=sorted({f'{fn.__module__}.{fn.__qualname__}'
-                                  for fn, _, _ in g.calls}),
-                branches=len(g.branches),
-                branch_runs=sum(x.branch_runs for x in caught),
-                branch_skips=sum(x.branch_skips for x in caught),
-                graph_nodes=sum(g.nodes),
-                capture_s=sum(x.capture_s for x in caught),
-                instantiate_s=sum(x.instantiate_s for x in caught))
+                                  for fn, _, _ in caught[0].calls}),
+                branches=first['branches'],
+                branch_runs=total('branch_runs'),
+                branch_skips=total('branch_skips'),
+                graph_nodes=first['nodes'], traced=first['traced'],
+                capture_s=total('capture_s'),
+                instantiate_s=total('instantiate_s'))

@@ -4,6 +4,7 @@ chunk and splatted into the film."""
 
 import torch
 
+from ..ops import tracing
 from ..ops.film import splat
 from ..path import trace
 
@@ -40,9 +41,12 @@ def render_mc(scene, opts, generator, spp=None, bidirectional=None,
 
 def render_direct(scene, opts, generator, chunk=16384):
     """Direct-lighting pass: unidirectional, depths <= 2, direct_spp
-    samples per pixel. Returns the per-spp-averaged film."""
+    samples per pixel. Returns the per-spp-averaged film. Traced as the
+    span pathtrace.direct."""
     if opts.min_depth > 2 or opts.max_depth < 1:
         return torch.zeros((scene.height, scene.width, 3), device=scene.device)
-    return render_mc(scene, opts, generator, spp=opts.direct_spp,
-                     bidirectional=False, min_depth=min(opts.min_depth, 2),
-                     max_depth=min(opts.max_depth, 2), chunk=chunk)
+    with tracing.span('pathtrace.direct'):
+        return render_mc(scene, opts, generator, spp=opts.direct_spp,
+                         bidirectional=False,
+                         min_depth=min(opts.min_depth, 2),
+                         max_depth=min(opts.max_depth, 2), chunk=chunk)

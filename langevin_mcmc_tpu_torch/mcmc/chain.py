@@ -12,6 +12,7 @@ import dataclasses
 
 import torch
 
+from ..ops import tracing
 from ..ops.graphs import cond_call
 from ..path import trace, replay
 from ..path.records import (PathRecord, to_subpath, get_path_pss, pss_dim,
@@ -284,8 +285,9 @@ def small_step_iso(scene, opts, state: ChainState, offset, noise):
     N(0, perturbStdDev^2) draw, already scaled) with the perturb jitters
     noise (perturb_noise); the MH ratio is the ssScore ratio.
     Returns (proposal dict, a)."""
-    new_rec, res = replay.replay_path(scene, opts, state.rec, offset, noise,
-                                      mode='perturb')
+    with tracing.span('chain.replay'):
+        new_rec, res = replay.replay_path(scene, opts, state.rec, offset,
+                                          noise, mode='perturb')
     ok = res['valid'] & (res['ss_score'] > 0.0)
     a = torch.clamp(res['ss_score'] / torch.clamp(state.ss_score, min=1e-20),
                     0.0, 1.0)
@@ -308,21 +310,26 @@ def _perturb_and_grad(scene, opts, rec, offset, noise, grad_mask=None,
     that consume the gradient; where none does it is zeros, as the JAX
     package's lax.cond gives (ops/graphs.cond_call: selected on the
     device, and skipped by a captured step).
-    Returns (new_rec, res, grad [C, Dm], hess [C, Dm, Dm] or None)."""
-    if scene.has_motion:
-        new_rec, res = replay.replay_path(scene, opts, rec, offset, noise,
-                                          mode='perturb')
-        bake = None
-    else:
-        new_rec, res, bake = replay.replay_path(
-            scene, opts, rec, offset, noise, mode='perturb',
-            collect_bake=True)
-    if want_hess:
-        grad, hess = replay.path_grad_hessian(scene, opts, new_rec, bake=bake)
-        return new_rec, res, grad, hess
-    grad = cond_call(grad_mask.any(),
-                     lambda r, b: replay.path_grad(scene, opts, r, bake=b),
-                     new_rec, bake)
+    Returns (new_rec, res, grad [C, Dm], hess [C, Dm, Dm] or None).
+    Traced as the spans chain.replay and chain.grad."""
+    with tracing.span('chain.replay'):
+        if scene.has_motion:
+            new_rec, res = replay.replay_path(scene, opts, rec, offset,
+                                              noise, mode='perturb')
+            bake = None
+        else:
+            new_rec, res, bake = replay.replay_path(
+                scene, opts, rec, offset, noise, mode='perturb',
+                collect_bake=True)
+    with tracing.span('chain.grad'):
+        if want_hess:
+            grad, hess = replay.path_grad_hessian(scene, opts, new_rec,
+                                                  bake=bake)
+            return new_rec, res, grad, hess
+        grad = cond_call(grad_mask.any(),
+                         lambda r, b: replay.path_grad(scene, opts, r,
+                                                       bake=b),
+                         new_rec, bake)
     return new_rec, res, grad, None
 
 
@@ -393,19 +400,26 @@ def small_step_mala(scene, opts, state: ChainState, z, noise, cache,
         zeros = torch.zeros((C, Dm), device=dev)
         flag = cur_need.any()
         if Kc >= C:
-            grad = cond_call(flag, grad_with_bake, state.rec)
+            with tracing.span('chain.grad'):
+                grad = cond_call(flag, grad_with_bake, state.rec)
             return torch.where(cur_need[:, None], grad, zeros), cur_need
         order = torch.argsort(torch.where(cur_need, 0, 1), stable=True)
         sel = order[:Kc]
         grad = zeros.clone()
-        grad[sel] = cond_call(flag, grad_with_bake,
-                              tree_take(state.rec, sel))
+        with tracing.span('chain.grad'):
+            grad[sel] = cond_call(flag, grad_with_bake,
+                                  tree_take(state.rec, sel))
         covered = torch.zeros_like(cur_need).index_fill_(0, sel, True)
         covered &= cur_need
         return torch.where(covered[:, None], grad, zeros), covered
 
-    def cache_gauss(pss_q, ss_score, v1_in, v2_in, queried, last_pss,
-                    need_mask):
+    def cache_gauss(*args):
+        """The kNN moments, traced as the span cache.knn."""
+        with tracing.span('cache.knn'):
+            return knn_gauss(*args)
+
+    def knn_gauss(pss_q, ss_score, v1_in, v2_in, queried, last_pss,
+                  need_mask):
         """kNN query (or reuse of the last query) for need_mask lanes.
         Returns (gauss, v1, v2, queried, last_pss)."""
         dmask = (torch.arange(Dm, device=dev)[None] < dim[:, None]).float()
@@ -579,8 +593,9 @@ def small_step_h2mc(scene, opts, state: ChainState, z, noise, use_iso=None,
     else:
         sel = torch.argsort(torch.where(need, 0, 1), stable=True)[:Kc]
     rec_sel = tree_take(state.rec, sel)
-    grad, hess = replay.path_grad_hessian(
-        scene, opts, rec_sel, bake=_bake(scene, opts, rec_sel))
+    with tracing.span('chain.grad'):
+        grad, hess = replay.path_grad_hessian(
+            scene, opts, rec_sel, bake=_bake(scene, opts, rec_sel))
     gauss_sel = h2mc_gauss(grad, hess, state.ss_score[sel])
 
     def put(s, d):

@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from . import cuda_build
-from .graphs import launch_counter
+from .tracing import launch_counter
 from .intersect import tri_test_ordered
 
 MAX_LEAF = 4
@@ -52,7 +52,7 @@ N_BUCKETS = 12
 STACK_DEPTH = 64
 
 # launches of the CUDA kernel, per variant; the plain version never counts
-launch_counts = launch_counter(('closest_hit', 'any_hit'))
+launch_counts = launch_counter(('closest_hit', 'any_hit'), __name__)
 
 
 def reset_launch_counts():

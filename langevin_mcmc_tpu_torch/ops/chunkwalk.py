@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from . import cuda_build
-from .graphs import launch_counter
+from .tracing import launch_counter
 
 RAY_BLOCK = 256
 TRI_CHUNK = 128
@@ -44,7 +44,8 @@ MAX_RANGE = 1024
 
 # launches of the CUDA kernels, per variant; the plain version never counts
 launch_counts = launch_counter(('split_closest_hit', 'split_any_hit',
-                                'closest_hit_resident', 'any_hit_resident'))
+                                'closest_hit_resident', 'any_hit_resident'),
+                               __name__)
 
 
 def use_resident(pack):

@@ -45,9 +45,12 @@ _BVH = [_P, _I, _P, _I] + [_P] * 5 + [_I] * 3 + [_P] * 5 + [_P]
 _F = ctypes.c_float
 _BRUTE = [_P] * 5 + [_I] * 3 + [_F] * 2 + [_P] * 5 + [_I] * 4 + [_P] * 9 \
     + [_P]
+# the trace registry's stamp (csrc/stamp.cu): the slots, the stage, the
+# stream
+_STAMP = [_P, _I, _P]
 SIGNATURES = {'chunkwalk_staged': _WALK, 'chunkwalk_resident': _WALK,
               'sweep_walk': _WALK, 'bvh_traverse': _BVH,
-              'brute_force': _BRUTE}
+              'brute_force': _BRUTE, 'stamp': _STAMP}
 
 # set by the first build in this process: seconds, cached, library path,
 # and ptxas's report (-Xptxas -v) per source, kept beside the library

@@ -17,9 +17,16 @@ begins the next one after it:
   their results.
 
 The kernel wrappers count launches on the host, each in a dict made by
-launch_counter. A capture launches nothing, so the launches its wrappers
-counted are taken back, and added again at every execution of the graph:
-the counts stay kernel executions.
+launch_counter (ops/tracing, the trace registry). A capture launches
+nothing, so the launches its wrappers counted are taken back, and added
+again at every execution of the graph: the counts stay kernel
+executions.
+
+With tracing on (ops/tracing) at its capture, each graph of a StepGraphs
+begins with a stamp charging 'graphs.gap' and ends with one charging the
+innermost open span, and its replays record the host spans
+graphs.replay, graphs.launch (the graph's index), graphs.flag_read,
+graphs.eager_call and, at the capture, graphs.instantiate.
 """
 
 import ctypes
@@ -29,33 +36,10 @@ import time
 import torch
 
 from ..utils.tree import tree_leaves
+from . import tracing
+from .tracing import _add_launches, _since, _snapshot
 
 _capture = None   # the StepGraphs capturing in this process, else None
-_counters = []    # every launch_counter dict
-
-
-def launch_counter(keys):
-    """A dict of launch counts, each key at 0, that StepGraphs keeps
-    counting kernel executions under replay. A kernel wrapper adds one to
-    its key where it launches its kernel, and nowhere else."""
-    counts = dict.fromkeys(keys, 0)
-    _counters.append(counts)
-    return counts
-
-
-def _snapshot():
-    return [dict(c) for c in _counters]
-
-
-def _add_launches(delta, sign=1):
-    for counts, d in zip(_counters, delta):
-        for k, v in d.items():
-            counts[k] += sign * v
-
-
-def _since(before):
-    return [{k: c[k] - b.get(k, 0) for k in c}
-            for c, b in zip(_counters, before)]
 
 
 def eager_call(fn, *args):
@@ -112,8 +96,10 @@ class StepGraphs:
     After capture: graphs (every CUDAGraph), calls (the eager calls
     between them: (fn, args, results)), branches (the cond_calls: (fn,
     graphs of the branch)), nodes (each graph's node count), capture_s
-    and instantiate_s (host seconds), and branch_runs and branch_skips
-    (the branches' executions and skips, the capture's included)."""
+    and instantiate_s (host seconds), branch_runs and branch_skips (the
+    branches' executions and skips, the capture's included), and traced
+    (whether tracing was on at the capture: its graphs carry the stamps).
+    The trace registry reports every StepGraphs (tracing.snapshot)."""
 
     def __init__(self, device, generator=None, pool=None):
         self.device = torch.device(device)
@@ -122,10 +108,12 @@ class StepGraphs:
         self.graphs, self.calls, self.branches, self.nodes = [], [], [], []
         self.capture_s = self.instantiate_s = 0.0
         self.branch_runs = self.branch_skips = 0
+        self.traced = False
         self._seq = []      # the step: ('graph' | 'call' | 'cond', ...)
         self._cur = self._seq
         self._depth = 0     # cond_call branches open
         self._stream = torch.cuda.Stream(self.device)
+        tracing.register_graphs(self)
 
     def capture(self, body):
         """Capture body() (a step that writes its results into tensors
@@ -141,6 +129,7 @@ class StepGraphs:
         # collector in the middle of this capture, would end it (a graph's
         # reset is not permitted while a stream captures)
         gc.collect()
+        self.traced = tracing.traces(self.device)
         gc_was_on = gc.isenabled()
         gc.disable()
         cur = torch.cuda.current_stream(self.device)
@@ -177,21 +166,36 @@ class StepGraphs:
 
     def replay(self):
         """One execution of the captured step on the current stream."""
-        self._run(self._seq)
+        with tracing.host_span('graphs.replay'):
+            self._run(self._seq)
 
     def _run(self, seq):
+        on = tracing._on
         for item in seq:
             if item[0] == 'graph':
+                if on:
+                    sp = tracing.host_open('graphs.launch', item[3])
                 item[1].replay()
                 _add_launches(item[2])
+                if on:
+                    tracing.host_close(sp)
             elif item[0] == 'call':
                 _, fn, args, out = item
+                if on:
+                    sp = tracing.host_open('graphs.eager_call')
                 new = fn(*args)
                 for o, n in zip(_as_tuple(out), _as_tuple(new)):
                     o.copy_(n)
+                if on:
+                    tracing.host_close(sp)
             else:
                 _, flag, branch, out = item
-                if bool(flag):
+                if on:
+                    sp = tracing.host_open('graphs.flag_read')
+                run = bool(flag)
+                if on:
+                    tracing.host_close(sp)
+                if run:
                     self.branch_runs += 1
                     self._run(branch)
                 else:
@@ -207,24 +211,32 @@ class StepGraphs:
         self._t0 = time.perf_counter()
         g.capture_begin(pool=self.pool)
         self.graphs.append(g)
+        if self.traced:
+            tracing.stamp_gap()
 
     def _end(self):
         g = self.graphs[-1]
+        if self.traced:
+            tracing.stamp_open()
         g.capture_end()
         self.capture_s += time.perf_counter() - self._t0
         delta = _since(self._before)
         _add_launches(delta, -1)
-        self._cur.append(('graph', g, delta))
+        index = len(self.graphs) - 1
+        self._cur.append(('graph', g, delta, index))
         self.nodes.append(node_count(g))
-        t0 = time.perf_counter()
-        g.instantiate()
-        self.instantiate_s += time.perf_counter() - t0
-        g.replay()
+        with tracing.host_span('graphs.instantiate', index):
+            t0 = time.perf_counter()
+            g.instantiate()
+            self.instantiate_s += time.perf_counter() - t0
+        with tracing.host_span('graphs.launch', index):
+            g.replay()
         _add_launches(delta)
 
     def _split(self, fn, args):
         self._end()
-        out = fn(*args)
+        with tracing.host_span('graphs.eager_call'):
+            out = fn(*args)
         self.calls.append((fn, args, out))
         self._cur.append(('call', fn, args, out))
         self._begin()
@@ -243,7 +255,10 @@ class StepGraphs:
         self.branches.append((fn, [x[1] for x in branch if x[0] == 'graph']))
         self._cur.append(('cond', flag, branch, out))
         # the branch ran as it was captured; undo it where flag is false
-        if bool(flag):
+        # (its stamps and live-ray counts, on the device, stay)
+        with tracing.host_span('graphs.flag_read'):
+            run = bool(flag)
+        if run:
             self.branch_runs += 1
         else:
             self.branch_skips += 1

@@ -26,8 +26,8 @@ import numpy as np
 import torch
 
 from ..utils import vecmath as vm
-from . import cuda_build
-from .graphs import launch_counter
+from . import cuda_build, tracing
+from .tracing import launch_counter
 
 TRI_CHUNK = 1024
 # ray-triangle pairs one block of the plain brute force holds: a moving
@@ -49,7 +49,7 @@ MATMUL_RAYS = 1 << 15
 
 # launches of the brute-force kernel, per variant; the plain version never
 # counts
-launch_counts = launch_counter(('closest_hit', 'any_hit'))
+launch_counts = launch_counter(('closest_hit', 'any_hit'), __name__)
 
 
 def reset_launch_counts():
@@ -385,7 +385,17 @@ def make_intersect_fns(scene):
     walk's plain version, where the JAX package takes its matmul sweep
     (the port's CPU tests of the kernels' plain versions stand on it);
     and a name outside BACKENDS is refused, where the JAX package falls
-    through to its default."""
+    through to its default.
+    With tracing on (ops/tracing), every query of every backend runs in
+    the span isect.closest or isect.any and counts its rays."""
+    fns = _backend_fns(scene)
+    if tracing.enabled():
+        return (tracing.traced_query('closest', fns[0]),
+                tracing.traced_query('any', fns[1]))
+    return fns
+
+
+def _backend_fns(scene):
     backend = os.environ.get('LMCMC_ISECT_BACKEND', '')
     if backend not in BACKENDS:
         raise ValueError(f'LMCMC_ISECT_BACKEND={backend!r}: the backends '

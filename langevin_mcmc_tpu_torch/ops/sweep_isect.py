@@ -22,12 +22,12 @@ import torch
 from .chunkwalk import (BIG, RAY_BLOCK, _sort_rays, _tile, _unsort,
                         chunk_winner, closest_result, launch, pad_rays)
 from .chunkwalk import prep_tables as _prep_chunks
-from .graphs import launch_counter
+from .tracing import launch_counter
 
 TRI_CHUNK = 512
 
 # launches of the CUDA kernel, per variant; the plain version never counts
-launch_counts = launch_counter(('closest_hit', 'any_hit'))
+launch_counts = launch_counter(('closest_hit', 'any_hit'), __name__)
 
 
 def reset_launch_counts():

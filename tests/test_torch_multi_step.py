@@ -434,11 +434,11 @@ def test_cond_call_outside_capture_is_lax_cond(flag):
 
 
 def test_kernel_launch_counters_are_registered():
-    """Every kernel wrapper's launch counts live in the one registry that
-    StepGraphs keeps counting under replay."""
-    from langevin_mcmc_tpu_torch.ops import bvh, chunkwalk, graphs
+    """Every kernel wrapper's launch counts live in the one registry
+    (ops/tracing) that StepGraphs keeps counting under replay."""
+    from langevin_mcmc_tpu_torch.ops import bvh, chunkwalk, tracing
     from langevin_mcmc_tpu_torch.ops import sweep_isect
-    registered = [id(c) for c in graphs._counters]
+    registered = [id(c) for c in tracing._counters]
     for m in (chunkwalk, sweep_isect, bvh):
         assert id(m.launch_counts) in registered
         m.reset_launch_counts()
