@@ -31,6 +31,13 @@ Phases (any failure exits non-zero before the last line is printed):
        hits), t within rtol 1e-4 / atol 5e-4, each query captured in a
        CUDA graph and replayed equal to its eager call; its ms beside
        K1-K4's;
+  3b. MALA's kNN moments (mcmc/cache.py query_knn, csrc/knn.cu) at the
+     flagship's shapes (knn_case: 16,384 lanes, 13 full rows of 3,000
+     entries, Dm 16, k 5, exact copies planted): the kernel against its
+     plain version (knn_reference) on the card, found bit for bit and v1,
+     v2 within rtol 1e-6; the whole query's time (the wrapper's lane
+     order and the kernel, one call and back to back), the order's alone,
+     the plain version's and the bound;
   4. on the generated open scene (the same torus, now a rough dielectric,
      on a textured floor beside a textured Phong sphere, lit by an env map
      with a sun, a point light and the quad area light; no walls, so rays
@@ -547,6 +554,85 @@ def check_kernels(scene):
         f'every hit, ids differ on {ties} exact ties of t')
     matmul_check(scene, (org, d, z, mn, mx), rows)
     return rows
+
+
+def knn_case(lanes=16384, k=5, Dm=16, seed=11):
+    """The flagship's kNN query on the card: every row of the cache full
+    (pss_max_size entries of uniform pss, v1 and v2 normal), the lanes'
+    dims spread over 2-12 and 14, 16 (clamped to the last row), a third
+    of the queries on a stored entry, a third within 1e-3 of one, and
+    entries 2,000-2,099 of every row exact copies of entries 0-99.
+    Returns (cache, dims, pss, opts)."""
+    from langevin_mcmc_tpu_torch import Options
+    from langevin_mcmc_tpu_torch.mcmc import cache as cache_mod
+    opts = dataclasses.replace(Options(), pss_knn=k)
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    cache = cache_mod.make_cache(opts, Dm, 'cuda')
+    ndim, size = cache.count.shape[0], cache.size
+    shape = (ndim, size, Dm)
+    pss = torch.rand(shape, generator=g, device='cuda')
+    pss[:, 2000:2100] = pss[:, :100]
+    cache = dataclasses.replace(
+        cache, pss=pss, v1=torch.randn(shape, generator=g, device='cuda'),
+        v2=torch.randn(shape, generator=g, device='cuda'),
+        count=torch.full((ndim,), size, dtype=torch.int32, device='cuda'))
+    choices = torch.tensor([2, 4, 6, 8, 10, 12, 14, 16], dtype=torch.int32,
+                           device='cuda')
+    dims = choices[torch.randint(0, len(choices), (lanes,), generator=g,
+                                 device='cuda')]
+    rows = torch.clamp(dims, 0, ndim - 1).long()
+    on = pss[rows, torch.randint(0, 100, (lanes,), generator=g,
+                                 device='cuda')]
+    near = on + 1e-3 * torch.randn(on.shape, generator=g, device='cuda')
+    anywhere = torch.rand(on.shape, generator=g, device='cuda')
+    third = (torch.arange(lanes, device='cuda') % 3)[:, None]
+    q = torch.where(third == 0, on, torch.where(third == 1, near, anywhere))
+    return cache, dims, q.contiguous(), opts
+
+
+def knn_phase():
+    """The kNN kernel at the flagship's shapes against its plain version,
+    timed. Returns its row of the kernels JSON line."""
+    from langevin_mcmc_tpu_torch.mcmc import cache as cache_mod
+    cache, dims, q, opts = knn_case()
+    query = lambda: cache_mod.query_knn(cache, dims, q, opts)
+    plain = lambda: cache_mod.knn_reference(cache, dims, q, opts)
+    got, want = query(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(got[0], want[0]):
+        raise AssertionError(f'knn: found differs on '
+                             f'{int((got[0] != want[0]).sum())} lanes')
+    rel = max(float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+              for a, b in zip(got[1:], want[1:]))
+    bits = all(torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
+    if rel > 1e-6:
+        raise AssertionError(f'knn: v1/v2 differ by rtol {rel:.3g}')
+    ndim = cache.count.shape[0]
+    sort = lambda: torch.argsort(dims, descending=True)
+    ms, ms_launches = cuda_ms(query), cuda_ms_launches(query)
+    sort_ms, plain_ms = cuda_ms(sort), cuda_ms(plain)
+    # 3 operations a coordinate of every (lane, live entry) pair; bytes:
+    # the cache and the queries read once, the results written once
+    Dm = q.shape[1]
+    live = cache.count[torch.clamp(dims, 0, ndim - 1).long()].double()
+    ops = float((live * torch.clamp(dims, 0, Dm).double()).sum()) * 3
+    moved = nbytes(cache.pss, cache.v1, cache.v2, cache.count, dims, q,
+                   *got)
+    ops_ms, bytes_ms = ops / PEAK_F32 * 1e3, moved / PEAK_BYTES * 1e3
+    bound_ms, bound_by = max((ops_ms, 'operations'), (bytes_ms, 'bytes'))
+    log(f'knn_query: {q.shape[0]} lanes, {ndim} rows of {cache.size}, '
+        f'Dm {Dm}, k {opts.pss_knn}: found bit for bit '
+        f'({int(got[0].sum())} found), v1/v2 '
+        f'{"bit for bit" if bits else f"max rel diff {rel:.3g}"}; whole '
+        f'query {ms:.3f} ms (back to back {ms_launches:.3f} ms), of it the '
+        f'lane order {sort_ms:.3f} ms; plain {plain_ms:.3f} ms; {ops:.4g} '
+        f'operations, {moved} bytes, bound {bound_ms:.4f} ms ({bound_by})')
+    return dict(name='knn_query', route='cuda',
+                source='csrc/knn.cu knn_kernel',
+                replaces='none (the JAX package query_knn is XLA ops)',
+                max_rel_err=rel, ms=ms, ms_launches=ms_launches,
+                sort_ms=sort_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
 
 
 def captured(fn):
@@ -1126,6 +1212,7 @@ def render(label, xml, env, sky=False, num_steps=None):
     launch counts of this render by row key)."""
     from langevin_mcmc_tpu_torch.__main__ import main as cli_main
     from langevin_mcmc_tpu_torch.integrators.mlt import render_mlt
+    from langevin_mcmc_tpu_torch.mcmc import cache as cache_mod
     from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
     from langevin_mcmc_tpu_torch.ops import intersect
     from langevin_mcmc_tpu_torch.ops import sweep_isect as sw
@@ -1161,6 +1248,7 @@ def render(label, xml, env, sky=False, num_steps=None):
     launches.update({'sweep_' + k: v for k, v in sw.launch_counts.items()})
     launches.update({'brute_' + k: v
                      for k, v in intersect.launch_counts.items()})
+    launches['knn_query'] = cache_mod.launch_counts['query']
     log(f'{label}: {env or "default backends"}; total {res["seconds"]:.2f} '
         f's, peak device memory '
         f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
@@ -1314,9 +1402,10 @@ def sync_free(fn):
 
 
 def _kernel_modules():
+    from langevin_mcmc_tpu_torch.mcmc import cache
     from langevin_mcmc_tpu_torch.ops import (bvh, chunkwalk, intersect,
                                              sweep_isect)
-    return chunkwalk, sweep_isect, bvh, intersect
+    return chunkwalk, sweep_isect, bvh, intersect, cache
 
 
 def all_launches():
@@ -2034,6 +2123,7 @@ def main():
         f'{scene.width}x{scene.height}')
     rows = check_kernels(scene)
     del scene
+    knn_row = knn_phase()
     scene, _, _ = parse_scene(xml_open, device='cuda')
     log(f'open scene: {scene.num_tris} triangles, {scene.cw.pack.shape[0]} '
         f'chunks of 128, {scene.num_lights} lights (env map '
@@ -2095,7 +2185,7 @@ def main():
     rate_f = chain_rate('path F (MALA, moving open scene)', res_f)
     tm_f, tm_d = res_f['timings'], res_d['timings']
     walks_f = {k: v for k, v in launch_f.items()
-               if not k.startswith('brute_')}
+               if not k.startswith('brute_') and k != 'knn_query'}
     log(f'path F: brute-force kernel launches closest / any '
         f'{launch_f["brute_closest_hit"]} / {launch_f["brute_any_hit"]}, '
         f'eager calls a step {tm_f.get("eager_calls", 0)}, graphs a step '
@@ -2134,6 +2224,8 @@ def main():
         row['launches'] = launch_i[key]
     for key, row in brute_rows.items():
         row['launches'] = launch_f['brute_' + key]
+    knn_row['launches_path_a'] = launch_a['knn_query']
+    knn_row['launches_path_e'] = launch_e['knn_query']
     for key in ('split_closest_hit', 'split_any_hit'):
         rows[key]['launches_path_g'] = launch_g[key]
         if launch_g[key] <= 0:
@@ -2163,7 +2255,7 @@ def main():
     print(json.dumps({'kernels': list(rows.values())
                       + list(open_kernel_rows.values())
                       + list(bvh_rows.values())
-                      + list(brute_rows.values())}))
+                      + list(brute_rows.values()) + [knn_row]}))
     print(f'nvidia-smi: {card}')
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

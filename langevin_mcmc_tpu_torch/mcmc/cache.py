@@ -11,7 +11,9 @@ step's pushes are scattered into their dimension rows at count + rank.
   (k = pss_knn, radius^2 = dim * pss_query_dist^2) with weights
   1 / (d_sq^2 + 1e-6). Distances are computed subtract-then-square,
   exactly; the JAX package uses the f32 expansion |q|^2 - 2 q.e + |e|^2,
-  which differs for near-coincident entries.
+  which differs for near-coincident entries. On CUDA tensors it is the
+  kernel csrc/knn.cu (knn_kernel), on CPU tensors its plain version
+  knn_reference, bit for bit the same.
 * eval_pdf_cache: the torus-wrapped Gaussian KDE pdf over the row's
   same-(s, t) entries, each kernel weighted by its path weight over the
   row's weight sum.
@@ -23,7 +25,22 @@ import math
 
 import torch
 
+from ..ops import cuda_build
+from ..ops.tracing import launch_counter
 from ..utils.tree import tree_map
+
+# the kNN kernel's launches (csrc/knn.cu); a captured step counts them at
+# every replay
+launch_counts = launch_counter(('query',), 'mcmc.cache')
+# the kernel's compile-time bounds: the best entries a lane keeps and the
+# coordinates of an entry
+KNN_MAX_K = 8
+KNN_MAX_DIM = 32
+
+
+def reset_launch_counts():
+    for k in launch_counts:
+        launch_counts[k] = 0
 
 
 @dataclasses.dataclass
@@ -117,9 +134,28 @@ def push_batch(cache: GlobalCache, dims, pss, v1, v2, weight, mask, opts,
         score_sum=cache.score_sum + add_w, rec=new_rec)
 
 
-def query_knn(cache: GlobalCache, dims, pss, opts, chunk=256):
-    """Radius-kNN moment interpolation over each lane's dimension row.
-    Returns (found [C] bool, v1 [C, Dm], v2 [C, Dm])."""
+def query_knn(cache: GlobalCache, dims, pss, opts):
+    """Radius-kNN moment interpolation over each lane's dimension row: the
+    k = pss_knn live entries nearest to pss (by distance, then entry
+    index), weighted 1 / (d_sq^2 + 1e-6) where d_sq <= dims *
+    pss_query_dist^2. The kernel (knn_kernel) on CUDA tensors, its plain
+    version (knn_reference) on CPU tensors. Returns (found [C] bool,
+    v1 [C, Dm], v2 [C, Dm])."""
+    if pss.device.type == 'cuda':
+        return knn_kernel(cache, dims, pss, opts)
+    return knn_reference(cache, dims, pss, opts)
+
+
+def knn_reference(cache: GlobalCache, dims, pss, opts, chunk=256):
+    """query_knn in torch, by the kernel's rules: a lane's row is
+    clamp(dims, 0, NDIM - 1) and its live entries those below the row's
+    count; a distance is (q_j - e_j)^2 summed over the coordinates j <
+    dims in ascending order; the k best are ordered by distance, then by
+    entry index (a stable sort of the running best, whose indices are
+    lower, ahead of each chunk of the row in index order); the weights and
+    the weighted v1/v2 rows are summed over the best in that order, a
+    product rounded before each add. Returns (found [C] bool, v1 [C, Dm],
+    v2 [C, Dm])."""
     ndim, size = cache.weight.shape
     C, Dm = pss.shape
     dev = pss.device
@@ -133,24 +169,79 @@ def query_knn(cache: GlobalCache, dims, pss, opts, chunk=256):
     live_n = cache.count[d].long()
     for s in range(0, size, chunk):
         idx = torch.arange(s, min(s + chunk, size), device=dev)
-        e = cache.pss[d[:, None], idx[None, :]] * dim_mask[:, None, :]
-        dist = torch.sum(torch.square(q[:, None, :] - e), -1)   # [C, n]
+        diff = q[:, None, :] - cache.pss[d[:, None], idx[None, :]] \
+            * dim_mask[:, None, :]
+        dist = torch.zeros(diff.shape[:2], device=dev)
+        for j in range(Dm):
+            dist = dist + torch.square(diff[..., j])
         dist = torch.where(idx[None, :] < live_n[:, None], dist,
                            torch.full_like(dist, float('inf')))
-        all_d = torch.cat([best_d, dist], 1)
+        all_d, sel = torch.sort(torch.cat([best_d, dist], 1), dim=1,
+                                stable=True)
         all_i = torch.cat([best_i, torch.broadcast_to(idx[None], dist.shape)],
                           1)
-        best_d, sel = torch.topk(all_d, k, dim=1, largest=False, sorted=True)
-        best_i = torch.gather(all_i, 1, sel)
+        best_d = all_d[:, :k]
+        best_i = torch.gather(all_i, 1, sel[:, :k])
     radius_sq = dims.to(torch.float32) * opts.pss_query_dist ** 2
     in_r = best_d <= radius_sq[:, None]
-    found = in_r.any(1)
     w = torch.where(in_r, 1.0 / (torch.square(best_d) + 1e-6),
                     torch.zeros_like(best_d))
-    wsum = torch.clamp(w.sum(1), min=1e-30)
-    v1 = torch.einsum('ck,ckd->cd', w, cache.v1[d[:, None], best_i])
-    v2 = torch.einsum('ck,ckd->cd', w, cache.v2[d[:, None], best_i])
-    return found, v1 / wsum[:, None], v2 / wsum[:, None]
+    wsum = torch.zeros(C, device=dev)
+    v1 = torch.zeros((C, Dm), device=dev)
+    v2 = torch.zeros((C, Dm), device=dev)
+    for j in range(k):
+        wsum = wsum + w[:, j]
+        on = in_r[:, j, None]
+        v1 = v1 + torch.where(on, w[:, j, None] * cache.v1[d, best_i[:, j]],
+                              torch.zeros_like(v1))
+        v2 = v2 + torch.where(on, w[:, j, None] * cache.v2[d, best_i[:, j]],
+                              torch.zeros_like(v2))
+    wsum = torch.clamp(wsum, min=1e-30)
+    return in_r.any(1), v1 / wsum[:, None], v2 / wsum[:, None]
+
+
+def knn_kernel(cache: GlobalCache, dims, pss, opts):
+    """query_knn by the kernel csrc/knn.cu on CUDA tensors: the lanes
+    ordered by dims, descending (an argsort), so a block's lanes share its
+    row; one launch counted, no host read. Raises on k or Dm past the kernel's
+    bounds (KNN_MAX_K, KNN_MAX_DIM), on inputs it does not take and on a
+    failed launch."""
+    ndim, size = cache.weight.shape
+    C, Dm = pss.shape
+    k = opts.pss_knn
+    if not 1 <= k <= KNN_MAX_K:
+        raise ValueError(f'pss_knn {k}: the kNN kernel keeps 1 to '
+                         f'{KNN_MAX_K} entries a lane')
+    if not 1 <= Dm <= KNN_MAX_DIM:
+        raise ValueError(f'{Dm} coordinates: the kNN kernel takes 1 to '
+                         f'{KNN_MAX_DIM}')
+    dev = pss.device
+    check = cuda_build.check
+    for x, name in ((cache.pss, 'cache.pss'), (cache.v1, 'cache.v1'),
+                    (cache.v2, 'cache.v2')):
+        check(x, name, torch.float32, (ndim, size, Dm), dev)
+    check(cache.count, 'cache.count', torch.int32, (ndim,), dev)
+    dims = dims.to(torch.int32).contiguous()
+    pss = pss.contiguous()
+    check(dims, 'dims', torch.int32, (C,), dev)
+    check(pss, 'pss', torch.float32, (C, Dm), dev)
+    found = torch.empty(C, dtype=torch.bool, device=dev)
+    v1 = torch.empty((C, Dm), device=dev)
+    v2 = torch.empty((C, Dm), device=dev)
+    if C == 0:
+        return found, v1, v2
+    # a lane's row and its coordinates' count both grow with dims: the
+    # lanes by row, the most work first
+    order = torch.argsort(dims, descending=True)
+    ptr = lambda x: x.data_ptr()
+    err = cuda_build.load_library().knn_query(
+        *map(ptr, (cache.pss, cache.v1, cache.v2, cache.count)), ndim, size,
+        Dm, *map(ptr, (dims, pss, order)), C, k,
+        opts.pss_query_dist ** 2, *map(ptr, (found, v1, v2)),
+        cuda_build.stream_of(dev))
+    cuda_build.raise_on_error(err, 'knn_query')
+    launch_counts['query'] += 1
+    return found, v1, v2
 
 
 def eval_pdf_cache(cache: GlobalCache, dims, pss, s, t, opts, chunk=256):

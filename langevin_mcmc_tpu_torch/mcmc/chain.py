@@ -413,12 +413,13 @@ def small_step_mala(scene, opts, state: ChainState, z, noise, cache,
         covered &= cur_need
         return torch.where(covered[:, None], grad, zeros), covered
 
-    def cache_gauss(*args):
-        """The kNN moments, traced as the span cache.knn."""
+    def cache_gauss(side, *args):
+        """The kNN moments of side 'cur' or 'prop', traced as the span
+        cache.knn."""
         with tracing.span('cache.knn'):
-            return knn_gauss(*args)
+            return knn_gauss(side, *args)
 
-    def knn_gauss(pss_q, ss_score, v1_in, v2_in, queried, last_pss,
+    def knn_gauss(side, pss_q, ss_score, v1_in, v2_in, queried, last_pss,
                   need_mask):
         """kNN query (or reuse of the last query) for need_mask lanes.
         Returns (gauss, v1, v2, queried, last_pss)."""
@@ -427,6 +428,7 @@ def small_step_mala(scene, opts, state: ChainState, z, noise, cache,
         reuse = queried & (dist_sq < dim.float() * opts.pss_reuse_dist ** 2)
         need_q = need_mask & ~reuse
         Kq = min(C, max(int(C * opts.cache_query_fraction), 8))
+        tracing.count_knn(side, need_q, Kq)
         if Kq >= C:
             found, qv1, qv2 = cache_mod.query_knn(cache, dim, pss_q, opts)
         else:
@@ -470,7 +472,7 @@ def small_step_mala(scene, opts, state: ChainState, z, noise, cache,
     need = cache_lane & ~state.gaussian_init
     gauss_cache_cur, cv1, cv2, queried1, last_pss1 = tree_where(
         need.any(),
-        cache_gauss(pss_cur, state.ss_score, state.v1, state.v2,
+        cache_gauss('cur', pss_cur, state.ss_score, state.v1, state.v2,
                     state.queried, state.last_pss, need),
         (iso, state.v1, state.v2, state.queried, state.last_pss))
     upd = need[:, None]
@@ -502,8 +504,8 @@ def small_step_mala(scene, opts, state: ChainState, z, noise, cache,
     need = cache_lane & ok
     gauss_cache_prop, pv1, pv2, queried2, last_pss2 = tree_where(
         cache_lane.any(),
-        cache_gauss(pss_prop, res['ss_score'], v1_now, v2_now, queried1,
-                    last_pss1, need),
+        cache_gauss('prop', pss_prop, res['ss_score'], v1_now, v2_now,
+                    queried1, last_pss1, need),
         (iso, v1_now, v2_now, queried1, last_pss1))
     upd = need[:, None]
     v1_now = torch.where(upd, pv1, v1_now)

@@ -48,9 +48,13 @@ _BRUTE = [_P] * 5 + [_I] * 3 + [_F] * 2 + [_P] * 5 + [_I] * 4 + [_P] * 9 \
 # the trace registry's stamp (csrc/stamp.cu): the slots, the stage, the
 # stream
 _STAMP = [_P, _I, _P]
+# the kNN moments (csrc/knn.cu): the cache's pss, v1, v2 and count, (rows,
+# entries, coordinates), the lanes' dims, pss and order, (lanes, k), the
+# squared query distance, found, v1, v2, the stream
+_KNN = [_P] * 4 + [_I] * 3 + [_P] * 3 + [_I] * 2 + [_F] + [_P] * 3 + [_P]
 SIGNATURES = {'chunkwalk_staged': _WALK, 'chunkwalk_resident': _WALK,
               'sweep_walk': _WALK, 'bvh_traverse': _BVH,
-              'brute_force': _BRUTE, 'stamp': _STAMP}
+              'brute_force': _BRUTE, 'stamp': _STAMP, 'knn_query': _KNN}
 
 # set by the first build in this process: seconds, cached, library path,
 # and ptxas's report (-Xptxas -v) per source, kept beside the library

@@ -33,6 +33,10 @@ StepGraphs decides at its capture whether its graphs carry the stamps.
   (count_rays): the rays submitted (a host count that StepGraphs adds at
   every replay, like a launch) and the live ones, max_t >= min_t, summed
   into an int64 tensor on the device.
+* kNN lane counters: with tracing on, each side of MALA's cache phase
+  (count_knn, 'cur' and 'prop') counts its query's lane budget Kq (a
+  host count, like the rays) and, on the device, the lanes that needed a
+  query (neither cached nor reused).
 
 The registry traces one device (enable's): spans stamp its current
 stream."""
@@ -88,6 +92,9 @@ def _since(before):
 
 # rays submitted to the queries while tracing (count_rays)
 ray_counts = launch_counter(('closest', 'any'), 'rays')
+# the kNN queries' lane budgets while tracing (count_knn), by side
+KNN_SIDES = ('cur', 'prop')
+knn_budget = launch_counter(KNN_SIDES, 'knn_budget')
 
 # ---------------------------------------------------------------------------
 # the registry's state
@@ -114,6 +121,8 @@ class _State:
         self.slots = torch.zeros(n, dtype=torch.int64, device=device) \
             if self.cuda else np.zeros(n, np.int64)
         self.live = torch.zeros(2, dtype=torch.int64, device=device)
+        self.knn_need = torch.zeros(len(KNN_SIDES), dtype=torch.int64,
+                                    device=device)
         self.lib = None
         if self.cuda:
             from . import cuda_build
@@ -351,6 +360,16 @@ def count_rays(kind, min_t, max_t):
     _st.live[0 if kind == 'closest' else 1].add_((max_t >= min_t).sum())
 
 
+def count_knn(side, need, budget):
+    """Add one kNN query of MALA's cache phase to the kNN counters: its
+    lane budget to the host's count of `side` ('cur' or 'prop'), and the
+    lanes that needed a query (need [C] bool) on the device."""
+    if not _on or need.device != _st.device:
+        return
+    knn_budget[side] += budget
+    _st.knn_need[KNN_SIDES.index(side)].add_(need.sum())
+
+
 # ---------------------------------------------------------------------------
 # graphs
 # ---------------------------------------------------------------------------
@@ -378,13 +397,15 @@ def graph_record(g):
 
 def snapshot():
     """Everything the registry holds, in one dict: 'enabled'; 'launches'
-    ({owner: {key: executions}}, the rays submitted under 'rays');
-    'graphs' ({number: graph_record} of every live StepGraphs, in the
-    order they were made); and, once tracing was enabled: 'device',
-    'clock_ns' (the last stamp's time), 'stages' ({stage path: [self ns,
-    intervals]}), 'live' ({'closest', 'any'}: live rays), 'calls'
-    (multi-step calls) and 'host_spans' (host spans recorded). The
-    device's slots are read with one copy, after a sync of the device."""
+    ({owner: {key: executions}}, the rays submitted under 'rays', the kNN
+    lane budgets under 'knn_budget'); 'graphs' ({number: graph_record} of
+    every live StepGraphs, in the order they were made); and, once
+    tracing was enabled: 'device', 'clock_ns' (the last stamp's time),
+    'stages' ({stage path: [self ns, intervals]}), 'live' ({'closest',
+    'any'}: live rays), 'knn_need' ({'cur', 'prop'}: lanes that needed a
+    kNN query), 'calls' (multi-step calls) and 'host_spans' (host spans
+    recorded). The device's slots are read with one copy, after a sync of
+    the device."""
     out = dict(enabled=_on,
                launches={o: dict(c) for o, c in zip(_owners, _counters)},
                graphs={k: graph_record(r()) for k, r in _graphs.items()
@@ -396,11 +417,13 @@ def snapshot():
         torch.cuda.synchronize(st.device)
     slots = st.slots.cpu() if st.cuda else st.slots
     live = st.live.cpu().tolist()
+    need = st.knn_need.cpu().tolist()
     v = slots.tolist()
     out.update(device=str(st.device), clock_ns=v[0],
                stages={p: [v[1 + 2 * i], v[2 + 2 * i]]
                        for i, p in enumerate(st.stage_paths)},
-               live=dict(closest=live[0], any=live[1]), calls=st.call,
+               live=dict(closest=live[0], any=live[1]),
+               knn_need=dict(zip(KNN_SIDES, need)), calls=st.call,
                host_spans=st.closed)
     return out
 
@@ -430,10 +453,13 @@ def delta(a, b):
         if n != n0:
             stages[p] = [ns - ns0, n - n0]
     la = a.get('live', dict(closest=0, any=0))
+    na = a.get('knn_need', {})
     out.update(device=b['device'], stages=stages,
                device_ns=b['clock_ns'] - a['clock_ns'] if 'clock_ns' in a
                else None,
                live={k: v - la[k] for k, v in b['live'].items()},
+               knn_need={k: v - na.get(k, 0)
+                         for k, v in b['knn_need'].items()},
                calls=b['calls'] - a.get('calls', 0),
                host_spans=b['host_spans'] - a.get('host_spans', 0))
     return out
