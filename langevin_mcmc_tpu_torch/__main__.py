@@ -14,7 +14,8 @@ one, --device cpu must be given.
 render, writes its host spans to FILE as a Chrome-trace JSON when the
 last has ended, and puts each render's stages in its timings
 ('stages_ms': self and inclusive milliseconds and the intervals of each
-span).
+span) with the small steps' lane counters ('lanes': knn_need,
+h2mc_lanes, h2mc_fallback and hess_nonfinite, each by side).
 
 Multi-process: one process per rank with --coordinator host:port
 --num-processes N --process-id i (each rank on cuda:{i % cards}); an MCMC
@@ -123,8 +124,9 @@ def main(argv=None):
         film = film.cpu().numpy()
         elapsed = time.time() - t0
         if args.trace:
-            timings['stages_ms'] = tracing.stages_ms(
-                tracing.delta(traced0, tracing.snapshot()))
+            traced = tracing.delta(traced0, tracing.snapshot())
+            timings['stages_ms'] = tracing.stages_ms(traced)
+            timings['lanes'] = traced['lanes']
         if b is not None:
             print(f'Average brightness:{b}')
         print(f'Elapsed time:{elapsed}')

@@ -745,8 +745,7 @@ def graph_stats(multis):
                 warmup_s=sum(m.warmup_s for m in ms),
                 capture_pass_s=sum(m.capture_pass_s for m in ms),
                 graphs=first['graphs'], eager_calls=first['eager_calls'],
-                eager_fns=sorted({f'{fn.__module__}.{fn.__qualname__}'
-                                  for fn, _, _ in caught[0].calls}),
+                eager_fns=first['eager_fns'],
                 branches=first['branches'],
                 branch_runs=total('branch_runs'),
                 branch_skips=total('branch_skips'),

@@ -21,6 +21,15 @@ from ..utils.tree import tree_map, tree_take, tree_where
 from . import gaussian as G
 from . import cache as cache_mod
 
+# with tracing on, the lanes of each side of a small step counted on the
+# device (ops/tracing.count_lanes): MALA's lanes that needed a kNN query;
+# H2MC's lanes whose Gaussian came from a Hessian, those of them that fell
+# back to the isotropic Gaussian, and those whose Hessian was not finite
+LANE_COUNTERS = tuple(tracing.lane_counter(n) for n in (
+    'knn_need', 'h2mc_lanes', 'h2mc_fallback', 'hess_nonfinite'))
+# the kNN queries' lane budgets Kq while tracing, by side
+knn_budget = tracing.launch_counter(tracing.SIDES, 'knn_budget')
+
 
 @dataclasses.dataclass
 class ChainState:
@@ -310,7 +319,8 @@ def _perturb_and_grad(scene, opts, rec, offset, noise, grad_mask=None,
     that consume the gradient; where none does it is zeros, as the JAX
     package's lax.cond gives (ops/graphs.cond_call: selected on the
     device, and skipped by a captured step).
-    Returns (new_rec, res, grad [C, Dm], hess [C, Dm, Dm] or None).
+    Returns (new_rec, res, grad [C, Dm], None or, when want_hess, (hess
+    [C, Dm, Dm], the lanes whose gradient and Hessian were finite [C])).
     Traced as the spans chain.replay and chain.grad."""
     with tracing.span('chain.replay'):
         if scene.has_motion:
@@ -323,9 +333,9 @@ def _perturb_and_grad(scene, opts, rec, offset, noise, grad_mask=None,
                 collect_bake=True)
     with tracing.span('chain.grad'):
         if want_hess:
-            grad, hess = replay.path_grad_hessian(scene, opts, new_rec,
-                                                  bake=bake)
-            return new_rec, res, grad, hess
+            grad, hess, finite = replay.path_grad_hessian(
+                scene, opts, new_rec, bake=bake)
+            return new_rec, res, grad, (hess, finite)
         grad = cond_call(grad_mask.any(),
                          lambda r, b: replay.path_grad(scene, opts, r,
                                                        bake=b),
@@ -428,7 +438,8 @@ def small_step_mala(scene, opts, state: ChainState, z, noise, cache,
         reuse = queried & (dist_sq < dim.float() * opts.pss_reuse_dist ** 2)
         need_q = need_mask & ~reuse
         Kq = min(C, max(int(C * opts.cache_query_fraction), 8))
-        tracing.count_knn(side, need_q, Kq)
+        if tracing.count_lanes('knn_need', side, need_q):
+            knn_budget[side] += Kq
         if Kq >= C:
             found, qv1, qv2 = cache_mod.query_knn(cache, dim, pss_q, opts)
         else:
@@ -569,17 +580,31 @@ def small_step_h2mc(scene, opts, state: ChainState, z, noise, use_iso=None,
     is stale, on a gathered subset of cur_grad_fraction * C lanes; lanes
     beyond the budget propose from the isotropic kernel once, and the MH
     ratio uses the kernel actually sampled (cur_ok tells the caller not
-    to commit it)."""
+    to commit it).
+
+    With tracing on, each side counts its lanes (the lane counters
+    h2mc_lanes, h2mc_fallback and hess_nonfinite): on
+    the current side the lanes in need that the budget covered, on the
+    proposal side the valid proposals of the lanes that neither mix nor
+    take a large step."""
     C = state.ls_score.shape[0]
     Dm = 2 * opts.max_depth
     dev = state.ls_score.device
     sigma = opts.perturb_std_dev
 
-    def h2mc_gauss(grad, hess, ss_score):
+    def h2mc_gauss(side, grad, hess, finite, ss_score, used):
+        """The Gaussians of one side; used() gives the lanes that take
+        them, for the counters (run only while tracing)."""
         m = (ss_score > 1e-15)[:, None]
         grad = torch.where(m, grad, torch.zeros_like(grad))
         hess = torch.where(m[..., None], hess, torch.zeros_like(hess))
-        return G.h2mc_gaussian(grad, hess, sigma, ss_score)
+        gauss, fallback = G.h2mc_gaussian(grad, hess, sigma, ss_score)
+        if tracing.enabled():
+            lanes = used()
+            tracing.count_lanes('h2mc_lanes', side, lanes)
+            tracing.count_lanes('h2mc_fallback', side, lanes & fallback)
+            tracing.count_lanes('hess_nonfinite', side, lanes & ~finite)
+        return gauss
 
     need = ~state.gaussian_init
     if use_iso is not None:
@@ -596,9 +621,10 @@ def small_step_h2mc(scene, opts, state: ChainState, z, noise, use_iso=None,
         sel = torch.argsort(torch.where(need, 0, 1), stable=True)[:Kc]
     rec_sel = tree_take(state.rec, sel)
     with tracing.span('chain.grad'):
-        grad, hess = replay.path_grad_hessian(
+        grad, hess, finite = replay.path_grad_hessian(
             scene, opts, rec_sel, bake=_bake(scene, opts, rec_sel))
-    gauss_sel = h2mc_gauss(grad, hess, state.ss_score[sel])
+    gauss_sel = h2mc_gauss('cur', grad, hess, finite, state.ss_score[sel],
+                           lambda: need[sel])
 
     def put(s, d):
         d = d.clone()
@@ -617,10 +643,18 @@ def small_step_h2mc(scene, opts, state: ChainState, z, noise, use_iso=None,
         gauss_cur = _where_gauss(use_iso, iso, gauss_cur)
 
     offset = G.gaussian_sample(gauss_cur, z)
-    new_rec, res, g_p, h_p = _perturb_and_grad(
+    new_rec, res, g_p, (h_p, finite_p) = _perturb_and_grad(
         scene, opts, state.rec, offset, noise, want_hess=True)
     ok = res['valid'] & (res['ss_score'] > 0.0)
-    gauss_prop = h2mc_gauss(g_p, h_p, res['ss_score'])
+
+    def prop_used():
+        used = ok
+        for lanes in (use_iso, skip_lanes):
+            if lanes is not None:
+                used = used & ~lanes
+        return used
+    gauss_prop = h2mc_gauss('prop', g_p, h_p, finite_p, res['ss_score'],
+                            prop_used)
     if use_iso is not None:
         gauss_prop = _where_gauss(use_iso, iso, gauss_prop)
     py = G.gaussian_log_pdf(offset, gauss_cur)

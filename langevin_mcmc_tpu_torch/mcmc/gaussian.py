@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..ops import tracing
 from ..ops.graphs import eager_call
 
 
@@ -109,18 +110,46 @@ EIGH_LANES = 8192
 def _eigh(hess):
     """torch.linalg.eigh in batches of EIGH_LANES. Its error check reads
     the solver's info flags on the host, so a captured chain step runs it
-    between graphs (ops/graphs.eager_call)."""
-    parts = [torch.linalg.eigh(h) for h in torch.split(hess, EIGH_LANES)]
+    between graphs (ops/graphs.eager_call). A lane whose
+    eigendecomposition the solver cannot give gets NaN eigenvalues
+    (_eigh_batch), which h2mc_gaussian takes as its isotropic fallback:
+    no Hessian ends the render."""
+    parts = [_eigh_batch(h) for h in torch.split(hess, EIGH_LANES)]
     return (torch.cat([p[0] for p in parts]),
             torch.cat([p[1] for p in parts]))
+
+
+def _eigh_batch(hess):
+    """torch.linalg.eigh of a batch [n, dim, dim]; where the solver
+    raises (it names only the first lane it failed on), the batch is
+    split in halves until each lane it fails on stands alone, and such a
+    lane gets NaN eigenvalues and the identity's eigenvectors."""
+    try:
+        return torch.linalg.eigh(hess)
+    except torch.linalg.LinAlgError:
+        pass
+    n, dim = hess.shape[0], hess.shape[-1]
+    if n == 1:
+        return (torch.full((1, dim), float('nan'), dtype=hess.dtype,
+                           device=hess.device),
+                torch.eye(dim, dtype=hess.dtype, device=hess.device)[None])
+    lo, hi = _eigh_batch(hess[:n // 2]), _eigh_batch(hess[n // 2:])
+    return torch.cat([lo[0], hi[0]]), torch.cat([lo[1], hi[1]])
 
 
 def h2mc_gaussian(grad, hess, sigma, sc, L=np.pi / 2.0):
     """H2MC anisotropic Gaussian from the gradient [C, dim] and Hessian
     [C, dim, dim] of the log-luminance; sigma the isotropic prior, sc the
     ssScore [C]. Lanes with sc ~ 0 or ||H|| < 0.5 / sigma^2 fall back to
-    the isotropic N(0, sigma^2). The eigendecomposition is a batched
-    torch.linalg.eigh, EIGH_LANES lanes at a time."""
+    the isotropic N(0, sigma^2), as do lanes whose eigendecomposition the
+    solver could not give (_eigh). The eigendecomposition is a batched
+    torch.linalg.eigh, EIGH_LANES lanes at a time. Traced as the span
+    gauss.h2mc. Returns (the Gaussian, the fallback lanes [C] bool)."""
+    with tracing.span('gauss.h2mc'):
+        return _h2mc_gaussian(grad, hess, sigma, sc, L)
+
+
+def _h2mc_gaussian(grad, hess, sigma, sc, L):
     C, dim = grad.shape
     pos_scale = 0.25 * (np.exp(L) - np.exp(-L)) ** 2
     pos_offset = 0.5 * (np.exp(L) + np.exp(-L) - 1.0)
@@ -154,7 +183,8 @@ def h2mc_gaussian(grad, hess, sigma, sc, L=np.pi / 2.0):
     log_det = torch.sum(torch.log(torch.clamp(post, min=1e-30)), -1)
 
     hess_norm = torch.sqrt(torch.sum(torch.square(hess), (-1, -2)))
-    fallback = (sc <= 1e-15) | (hess_norm < 0.5 * inv_sigma_sq)
+    fallback = ((sc <= 1e-15) | (hess_norm < 0.5 * inv_sigma_sq)
+                | ~torch.isfinite(eigval).all(-1))
     iso = isotropic_gaussian(C, dim, sigma, grad.device, dense=True)
     fb = fallback[:, None]
     fbm = fallback[:, None, None]
@@ -164,4 +194,5 @@ def h2mc_gaussian(grad, hess, sigma, sc, L=np.pi / 2.0):
         cov_l=torch.where(fbm, iso.cov_l, cov_l),
         inv_cov=torch.where(fbm, iso.inv_cov, inv_cov),
         log_det=torch.where(fallback, iso.log_det, log_det),
-        is_diagonal=torch.zeros(C, dtype=torch.bool, device=grad.device))
+        is_diagonal=torch.zeros(C, dtype=torch.bool,
+                                device=grad.device)), fallback

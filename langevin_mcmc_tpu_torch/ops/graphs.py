@@ -24,9 +24,11 @@ executions.
 
 With tracing on (ops/tracing) at its capture, each graph of a StepGraphs
 begins with a stamp charging 'graphs.gap' and ends with one charging the
-innermost open span, and its replays record the host spans
-graphs.replay, graphs.launch (the graph's index), graphs.flag_read,
-graphs.eager_call and, at the capture, graphs.instantiate.
+innermost open span, each eager call is stamped on both sides (its device
+time charged to the span open where it was captured), and its replays
+record the host spans graphs.replay, graphs.launch (the graph's index),
+graphs.flag_read, graphs.eager_call.<the function's name> and, at the
+capture, graphs.instantiate.
 """
 
 import ctypes
@@ -180,14 +182,8 @@ class StepGraphs:
                 if on:
                     tracing.host_close(sp)
             elif item[0] == 'call':
-                _, fn, args, out = item
-                if on:
-                    sp = tracing.host_open('graphs.eager_call')
-                new = fn(*args)
-                for o, n in zip(_as_tuple(out), _as_tuple(new)):
-                    o.copy_(n)
-                if on:
-                    tracing.host_close(sp)
+                _, fn, args, out, stage = item
+                self._eager(fn, args, stage, into=out)
             else:
                 _, flag, branch, out = item
                 if on:
@@ -235,11 +231,28 @@ class StepGraphs:
 
     def _split(self, fn, args):
         self._end()
-        with tracing.host_span('graphs.eager_call'):
-            out = fn(*args)
+        stage = tracing.open_stage() if self.traced else None
+        out = self._eager(fn, args, stage)
         self.calls.append((fn, args, out))
-        self._cur.append(('call', fn, args, out))
+        self._cur.append(('call', fn, args, out, stage))
         self._begin()
+        return out
+
+    def _eager(self, fn, args, stage, into=None):
+        """fn(*args) between two graphs, its results copied into `into`
+        where given, as the host span graphs.eager_call.<fn's name>;
+        stage: None, or (a traced step) the stage slot its device time is
+        charged to, between a stamp charging 'graphs.gap' and one charging
+        the stage."""
+        if stage is not None:
+            tracing.stamp_gap()
+        with tracing.host_span(f'graphs.eager_call.{fn.__name__}'):
+            out = fn(*args)
+            if into is not None:
+                for o, n in zip(_as_tuple(into), _as_tuple(out)):
+                    o.copy_(n)
+        if stage is not None:
+            tracing.stamp_stage(stage)
         return out
 
     def _cond(self, flag, fn, args):

@@ -19,8 +19,10 @@ StepGraphs decides at its capture whether its graphs carry the stamps.
   sums over a path's descendants. Device time inside no span is charged
   to 'other'; each graph of a StepGraphs begins with a stamp that charges
   'graphs.gap' (the device time since the previous graph: host launches,
-  flag reads, eager calls, the caller's syncs). Self times summed over
-  every stage equal the device time from the first stamp to the last.
+  flag reads, the caller's syncs); an eager call between two graphs is
+  stamped on each side, so its own device time is charged to the stage
+  open where it was captured. Self times summed over every stage equal
+  the device time from the first stamp to the last.
   On the CPU the same accounting runs on the host clock.
 * Host spans: every span, and the host-only spans of ops.graphs and the
   multi-step (host_open / host_close), recorded in a ring of the newest
@@ -33,10 +35,15 @@ StepGraphs decides at its capture whether its graphs carry the stamps.
   (count_rays): the rays submitted (a host count that StepGraphs adds at
   every replay, like a launch) and the live ones, max_t >= min_t, summed
   into an int64 tensor on the device.
-* kNN lane counters: with tracing on, each side of MALA's cache phase
-  (count_knn, 'cur' and 'prop') counts its query's lane budget Kq (a
-  host count, like the rays) and, on the device, the lanes that needed a
-  query (neither cached nor reused).
+* Lane counters: a module registers a named counter at its import
+  (lane_counter); with tracing on, count_lanes adds the lanes set in a
+  bool tensor to the counter's side ('cur' or 'prop': a small step's
+  current state or its proposal) on the device. mcmc/chain.py counts
+  MALA's lanes that needed a kNN query (knn_need, beside the host count
+  of each query's lane budget, knn_budget) and H2MC's lanes whose
+  Gaussian came from a Hessian (h2mc_lanes), those of them that fell back
+  to the isotropic Gaussian (h2mc_fallback) and those whose gradient or
+  Hessian was zeroed as not finite (hess_nonfinite).
 
 The registry traces one device (enable's): spans stamp its current
 stream."""
@@ -92,9 +99,26 @@ def _since(before):
 
 # rays submitted to the queries while tracing (count_rays)
 ray_counts = launch_counter(('closest', 'any'), 'rays')
-# the kNN queries' lane budgets while tracing (count_knn), by side
-KNN_SIDES = ('cur', 'prop')
-knn_budget = launch_counter(KNN_SIDES, 'knn_budget')
+
+# ---------------------------------------------------------------------------
+# lane counters
+# ---------------------------------------------------------------------------
+
+# the sides of a small step: the current state and the proposal
+SIDES = ('cur', 'prop')
+MAX_LANE_COUNTERS = 16
+_lane_names = []    # every lane_counter, in the order of its device row
+
+
+def lane_counter(name):
+    """Register the device lane counter `name` (count_lanes), reported by
+    snapshot() under 'lanes' as {side: lanes}. The module that counts
+    makes it at its import; registering a name again is a no-op."""
+    if name not in _lane_names:
+        if len(_lane_names) == MAX_LANE_COUNTERS:
+            raise ValueError(f'more than {MAX_LANE_COUNTERS} lane counters')
+        _lane_names.append(name)
+    return name
 
 # ---------------------------------------------------------------------------
 # the registry's state
@@ -121,8 +145,8 @@ class _State:
         self.slots = torch.zeros(n, dtype=torch.int64, device=device) \
             if self.cuda else np.zeros(n, np.int64)
         self.live = torch.zeros(2, dtype=torch.int64, device=device)
-        self.knn_need = torch.zeros(len(KNN_SIDES), dtype=torch.int64,
-                                    device=device)
+        self.lanes = torch.zeros((MAX_LANE_COUNTERS, len(SIDES)),
+                                 dtype=torch.int64, device=device)
         self.lib = None
         if self.cuda:
             from . import cuda_build
@@ -308,10 +332,20 @@ def stamp_gap():
     _st.stamp(1)
 
 
+def open_stage():
+    """The slot of the innermost open stage ('other' where none is)."""
+    stack = _st.stage_stack
+    return stack[-1] if stack else 0
+
+
 def stamp_open():
     """The stamp that ends a graph: charges the innermost open stage."""
-    stack = _st.stage_stack
-    _st.stamp(stack[-1] if stack else 0)
+    _st.stamp(open_stage())
+
+
+def stamp_stage(i):
+    """A stamp that charges stage slot i (open_stage's)."""
+    _st.stamp(i)
 
 
 def timed(fn, device, name=None, stage=False):
@@ -360,14 +394,14 @@ def count_rays(kind, min_t, max_t):
     _st.live[0 if kind == 'closest' else 1].add_((max_t >= min_t).sum())
 
 
-def count_knn(side, need, budget):
-    """Add one kNN query of MALA's cache phase to the kNN counters: its
-    lane budget to the host's count of `side` ('cur' or 'prop'), and the
-    lanes that needed a query (need [C] bool) on the device."""
-    if not _on or need.device != _st.device:
-        return
-    knn_budget[side] += budget
-    _st.knn_need[KNN_SIDES.index(side)].add_(need.sum())
+def count_lanes(name, side, lanes):
+    """Add the lanes set in `lanes` ([n] bool) to lane counter `name`'s
+    `side` ('cur' or 'prop') on the device. Returns whether it counted:
+    only while tracing, and only lanes on the traced device."""
+    if not _on or lanes.device != _st.device:
+        return False
+    _st.lanes[_lane_names.index(name), SIDES.index(side)].add_(lanes.sum())
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -383,9 +417,13 @@ def register_graphs(g):
 
 
 def graph_record(g):
-    """A StepGraphs' numbers as snapshot() reports them."""
+    """A StepGraphs' numbers as snapshot() reports them: eager_calls are
+    a step's calls between graphs, eager_fns the functions they run."""
     return dict(traced=g.traced, graphs=len(g.graphs),
-                eager_calls=len(g.calls), branches=len(g.branches),
+                eager_calls=len(g.calls),
+                eager_fns=sorted({f'{fn.__module__}.{fn.__qualname__}'
+                                  for fn, _, _ in g.calls}),
+                branches=len(g.branches),
                 nodes=sum(g.nodes), capture_s=g.capture_s,
                 instantiate_s=g.instantiate_s, branch_runs=g.branch_runs,
                 branch_skips=g.branch_skips)
@@ -397,15 +435,14 @@ def graph_record(g):
 
 def snapshot():
     """Everything the registry holds, in one dict: 'enabled'; 'launches'
-    ({owner: {key: executions}}, the rays submitted under 'rays', the kNN
-    lane budgets under 'knn_budget'); 'graphs' ({number: graph_record} of
+    ({owner: {key: executions}}, the rays submitted under 'rays'); 'graphs' ({number: graph_record} of
     every live StepGraphs, in the order they were made); and, once
     tracing was enabled: 'device', 'clock_ns' (the last stamp's time),
     'stages' ({stage path: [self ns, intervals]}), 'live' ({'closest',
-    'any'}: live rays), 'knn_need' ({'cur', 'prop'}: lanes that needed a
-    kNN query), 'calls' (multi-step calls) and 'host_spans' (host spans
-    recorded). The device's slots are read with one copy, after a sync of
-    the device."""
+    'any'}: live rays), 'lanes' ({lane counter: {'cur', 'prop'}}),
+    'calls' (multi-step calls) and 'host_spans' (host spans recorded).
+    The device's slots are read with one copy, after a sync of the
+    device."""
     out = dict(enabled=_on,
                launches={o: dict(c) for o, c in zip(_owners, _counters)},
                graphs={k: graph_record(r()) for k, r in _graphs.items()
@@ -417,14 +454,15 @@ def snapshot():
         torch.cuda.synchronize(st.device)
     slots = st.slots.cpu() if st.cuda else st.slots
     live = st.live.cpu().tolist()
-    need = st.knn_need.cpu().tolist()
+    lanes = st.lanes.cpu().tolist()
     v = slots.tolist()
     out.update(device=str(st.device), clock_ns=v[0],
                stages={p: [v[1 + 2 * i], v[2 + 2 * i]]
                        for i, p in enumerate(st.stage_paths)},
                live=dict(closest=live[0], any=live[1]),
-               knn_need=dict(zip(KNN_SIDES, need)), calls=st.call,
-               host_spans=st.closed)
+               lanes={n: dict(zip(SIDES, lanes[i]))
+                      for i, n in enumerate(_lane_names)},
+               calls=st.call, host_spans=st.closed)
     return out
 
 
@@ -453,13 +491,14 @@ def delta(a, b):
         if n != n0:
             stages[p] = [ns - ns0, n - n0]
     la = a.get('live', dict(closest=0, any=0))
-    na = a.get('knn_need', {})
+    na = a.get('lanes', {})
     out.update(device=b['device'], stages=stages,
                device_ns=b['clock_ns'] - a['clock_ns'] if 'clock_ns' in a
                else None,
                live={k: v - la[k] for k, v in b['live'].items()},
-               knn_need={k: v - na.get(k, 0)
-                         for k, v in b['knn_need'].items()},
+               lanes={n: {s: v - na.get(n, {}).get(s, 0)
+                          for s, v in c.items()}
+                      for n, c in b['lanes'].items()},
                calls=b['calls'] - a.get('calls', 0),
                host_spans=b['host_spans'] - a.get('host_spans', 0))
     return out

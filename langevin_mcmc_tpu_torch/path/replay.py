@@ -23,6 +23,7 @@ from ..utils import vecmath as vm
 from ..utils.tree import tree_map, tree_where
 from ..ops import bsdf as bsdf_ops
 from ..ops import lights as light_ops
+from ..ops import tracing
 from ..ops.intersect import (make_intersect_fns, gather_tri_row_raw,
                              row_dict_from_raw, frozen_from_row,
                              hit_attrs_from_row)
@@ -604,8 +605,10 @@ def path_grad_hessian(scene, opts, rec, max_dim=None, bake=None):
     w.r.t. the PSS offset. Lanes are independent, so the summed
     log-luminance gives every lane's gradient g in one backward pass (with
     its graph kept), and row i of every lane's Hessian in one more backward
-    pass of sum(g[:, i]): 2D passes in all. A lane whose gradient or
-    Hessian is not finite gets zeros in both."""
+    pass of sum(g[:, i]): 2D passes in all, the row passes traced as the
+    span chain.hess. A lane whose gradient or Hessian is not finite gets
+    zeros in both. Returns (gradient, Hessian, the lanes that were finite
+    [C] bool)."""
     C = rec.time.shape[0]
     max_dim = 2 * rec.max_depth if max_dim is None else max_dim
     with torch.enable_grad():
@@ -614,15 +617,17 @@ def path_grad_hessian(scene, opts, rec, max_dim=None, bake=None):
         f = log_luminance_fn(scene, opts, rec, bake=bake)(offset)
         (g,) = torch.autograd.grad(f.sum(), offset, create_graph=True)
         rows = []
-        for i in range(max_dim):
-            (h_i,) = torch.autograd.grad(g[:, i].sum(), offset,
-                                         retain_graph=i + 1 < max_dim,
-                                         allow_unused=True)
-            rows.append(torch.zeros_like(offset) if h_i is None else h_i)
+        with tracing.span('chain.hess'):
+            for i in range(max_dim):
+                (h_i,) = torch.autograd.grad(g[:, i].sum(), offset,
+                                             retain_graph=i + 1 < max_dim,
+                                             allow_unused=True)
+                rows.append(torch.zeros_like(offset) if h_i is None
+                            else h_i)
+            h = torch.stack(rows, 1)
     g = g.detach()
-    h = torch.stack(rows, 1)
     finite = (torch.isfinite(g).all(-1)
-              & torch.isfinite(h).all(-1).all(-1))[:, None]
-    g = torch.where(finite, g, torch.zeros_like(g))
-    h = torch.where(finite[..., None], h, torch.zeros_like(h))
-    return g, h
+              & torch.isfinite(h).all(-1).all(-1))
+    g = torch.where(finite[:, None], g, torch.zeros_like(g))
+    h = torch.where(finite[:, None, None], h, torch.zeros_like(h))
+    return g, h, finite

@@ -78,8 +78,8 @@ def test_h2mc_gaussian_matches_jax():
     grad, hess, sc = _planted(np.random.default_rng(0), C, dim)
     gj = JG.h2mc_gaussian(jnp.asarray(grad), jnp.asarray(hess), SIGMA,
                           jnp.asarray(sc))
-    gt = G.h2mc_gaussian(torch.as_tensor(grad), torch.as_tensor(hess), SIGMA,
-                         torch.as_tensor(sc))
+    gt, _ = G.h2mc_gaussian(torch.as_tensor(grad), torch.as_tensor(hess),
+                            SIGMA, torch.as_tensor(sc))
     covj = np.einsum('cij,ckj->cik', np.asarray(gj.cov_l),
                      np.asarray(gj.cov_l))
     covt = np.einsum('cij,ckj->cik', to_np(gt.cov_l), to_np(gt.cov_l))
@@ -108,8 +108,8 @@ def test_h2mc_gaussian_matches_jax():
 def test_dense_sample_whitens():
     C, dim = 32, 6
     grad, hess, sc = _planted(np.random.default_rng(2), C, dim)
-    g = G.h2mc_gaussian(torch.as_tensor(grad), torch.as_tensor(hess), SIGMA,
-                        torch.as_tensor(sc))
+    g, _ = G.h2mc_gaussian(torch.as_tensor(grad), torch.as_tensor(hess),
+                           SIGMA, torch.as_tensor(sc))
     z = torch.as_tensor(np.random.default_rng(3).normal(
         size=(C, dim)).astype(np.float32))
     d = G.gaussian_sample(g, z) - g.mean
@@ -152,7 +152,7 @@ def setup(tmp_path_factory):
     live = to_np(con.ss_score[:, SLOT[0] - 2, SLOT[1]] > 1e-6) \
         & to_np(res['valid'])
     assert live.sum() >= 3
-    g, h = replay.path_grad_hessian(ts, jo, new_rec, bake=bake)
+    g, h, _ = replay.path_grad_hessian(ts, jo, new_rec, bake=bake)
     return js, jo, ts, new_rec, bake, live, to_np(g), to_np(h)
 
 
@@ -259,7 +259,7 @@ def test_h2mc_mh_ratio_matches_jax(h2mc_step):
     def jax_gauss(rec, ss):
         bake = replay.bake_frozen(ts, jo, rec)
         g, h = (to_np(x) for x in replay.path_grad_hessian(ts, jo, rec,
-                                                           bake=bake))
+                                                           bake=bake)[:2])
         m = to_np(ss) > 1e-15
         g = np.where(m[:, None], g, 0.0)
         h = np.where(m[:, None, None], h, 0.0)

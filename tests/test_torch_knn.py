@@ -34,6 +34,7 @@ import torch
 
 from langevin_mcmc_tpu_torch import Options, testscenes
 from langevin_mcmc_tpu_torch.mcmc import cache as cache_mod
+from langevin_mcmc_tpu_torch.mcmc import chain
 from langevin_mcmc_tpu_torch.ops import tracing
 
 torch.set_num_threads(1)
@@ -232,20 +233,25 @@ def test_launch_counter_is_registered():
 
 
 def test_knn_lane_counters_while_tracing():
-    """count_knn adds a query's budget to the host count of its side and
-    the lanes in need on the device, only while tracing."""
+    """A MALA cache-phase query counts, only while tracing, the lanes in
+    need on the device (the lane counter knn_need) and its budget Kq in
+    the host count of its side (knn_budget), as small_step_mala does."""
     need = torch.tensor([True, False, True, True])
-    tracing.count_knn('cur', need, 4)      # off: nothing
+
+    def query(side, lanes, budget):
+        if tracing.count_lanes('knn_need', side, lanes):
+            chain.knn_budget[side] += budget
+    query('cur', need, 4)      # off: nothing
     tracing.enable('cpu')
     try:
         a = tracing.snapshot()
-        tracing.count_knn('cur', need, 4)
-        tracing.count_knn('prop', need[:2], 2)
+        query('cur', need, 4)
+        query('prop', need[:2], 2)
         d = tracing.delta(a, tracing.snapshot())
     finally:
         tracing.disable()
     assert d['launches']['knn_budget'] == dict(cur=4, prop=2)
-    assert d['knn_need'] == dict(cur=3, prop=1)
+    assert d['lanes']['knn_need'] == dict(cur=3, prop=1)
 
 
 # ---------------------------------------------------------------------------

@@ -234,7 +234,7 @@ def test_path_grad_hessian_without_bake_matches_jax(setup, jax_fns):
     sub = dataclasses.replace(r, **{f.name: getattr(r, f.name)[lanes]
                                     for f in dataclasses.fields(r)
                                     if f.name != 'max_depth'})
-    g, h = replay.path_grad_hessian(ts, jo, sub)
+    g, h, _ = replay.path_grad_hessian(ts, jo, sub)
     g, h = to_np(g), to_np(h)
     assert np.isfinite(g).all() and np.isfinite(h).all()
     assert np.abs(h).max() > 0
