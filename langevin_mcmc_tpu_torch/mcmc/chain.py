@@ -334,7 +334,7 @@ def _perturb_and_grad(scene, opts, rec, offset, noise, grad_mask=None,
     with tracing.span('chain.grad'):
         if want_hess:
             grad, hess, finite = replay.path_grad_hessian(
-                scene, opts, new_rec, bake=bake)
+                scene, opts, new_rec, bake=bake, side='prop')
             return new_rec, res, grad, (hess, finite)
         grad = cond_call(grad_mask.any(),
                          lambda r, b: replay.path_grad(scene, opts, r,
@@ -622,7 +622,8 @@ def small_step_h2mc(scene, opts, state: ChainState, z, noise, use_iso=None,
     rec_sel = tree_take(state.rec, sel)
     with tracing.span('chain.grad'):
         grad, hess, finite = replay.path_grad_hessian(
-            scene, opts, rec_sel, bake=_bake(scene, opts, rec_sel))
+            scene, opts, rec_sel, bake=_bake(scene, opts, rec_sel),
+            side='cur')
     gauss_sel = h2mc_gauss('cur', grad, hess, finite, state.ss_score[sel],
                            lambda: need[sel])
 

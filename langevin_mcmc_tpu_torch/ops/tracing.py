@@ -43,7 +43,9 @@ StepGraphs decides at its capture whether its graphs carry the stamps.
   of each query's lane budget, knn_budget) and H2MC's lanes whose
   Gaussian came from a Hessian (h2mc_lanes), those of them that fell back
   to the isotropic Gaussian (h2mc_fallback) and those whose gradient or
-  Hessian was zeroed as not finite (hess_nonfinite).
+  Hessian was zeroed as not finite (hess_nonfinite); path/replay.py
+  counts, by side, the double-backward passes each Hessian ran while
+  tracing (hess_passes, a launch counter: one a row group).
 
 The registry traces one device (enable's): spans stamp its current
 stream."""

@@ -600,32 +600,72 @@ def path_grad(scene, opts, rec, max_dim=None, bake=None):
     return torch.where(finite, g, torch.zeros_like(g))
 
 
-def path_grad_hessian(scene, opts, rec, max_dim=None, bake=None):
+# replicated lanes one pass of path_grad_hessian may take: the rows of a
+# C-lane Hessian of Dm rows form hess_groups(C, Dm), each its own forward,
+# backward and double backward over C lanes a row. A replicated lane of
+# the torus box at maxdepth 8 holds ~28 KB of device memory through the
+# double backward (H100), so 2**20 lanes, a 65,536-lane side's 16 rows in
+# one group, take ~29 GB and keep an H2MC render under 60 GB.
+HESS_LANES = 1 << 20
+
+# the double-backward passes path_grad_hessian ran while tracing, by
+# side: one a row group
+hess_passes = tracing.launch_counter(tracing.SIDES, 'hess_passes')
+
+
+def hess_groups(C, Dm):
+    """The row groups of a C-lane Hessian of Dm rows: ceil(Dm C /
+    HESS_LANES) of them (at most Dm), near-equal, as (first row, rows)
+    pairs."""
+    n = min(Dm, -(-Dm * C // HESS_LANES))
+    size, extra = divmod(Dm, n)
+    out, lo = [], 0
+    for k in range(n):
+        rows = size + (k < extra)
+        out.append((lo, rows))
+        lo += rows
+    return out
+
+
+def path_grad_hessian(scene, opts, rec, max_dim=None, bake=None, side=None):
     """Gradient [C, 2D] and dense Hessian [C, 2D, 2D] of log-luminance
-    w.r.t. the PSS offset. Lanes are independent, so the summed
-    log-luminance gives every lane's gradient g in one backward pass (with
-    its graph kept), and row i of every lane's Hessian in one more backward
-    pass of sum(g[:, i]): 2D passes in all, the row passes traced as the
-    span chain.hess. A lane whose gradient or Hessian is not finite gets
-    zeros in both. Returns (gradient, Hessian, the lanes that were finite
-    [C] bool)."""
+    w.r.t. the PSS offset. Lanes are independent in the frozen replay, so
+    the rows of a group (hess_groups) are taken together on replicated
+    lanes: copy r of every lane of the record and the bake runs one
+    forward at a zero offset, one backward of the summed log-luminance
+    (with its graph kept) gives each copy the lane's gradient, and one
+    double backward with the grad-output e_row_r on copy r gives copy r
+    row row_r of the lane's Hessian. The gradient is copy 0's. Traced as
+    the span chain.hess; side ('cur' or 'prop'): where tracing is on, the
+    groups are added to that side of the counter hess_passes. A lane
+    whose gradient or Hessian is not finite gets zeros in both. Returns
+    (gradient, Hessian, the lanes that were finite [C] bool)."""
     C = rec.time.shape[0]
     max_dim = 2 * rec.max_depth if max_dim is None else max_dim
-    with torch.enable_grad():
-        offset = torch.zeros((C, max_dim), device=rec.time.device,
-                             requires_grad=True)
-        f = log_luminance_fn(scene, opts, rec, bake=bake)(offset)
-        (g,) = torch.autograd.grad(f.sum(), offset, create_graph=True)
-        rows = []
-        with tracing.span('chain.hess'):
-            for i in range(max_dim):
-                (h_i,) = torch.autograd.grad(g[:, i].sum(), offset,
-                                             retain_graph=i + 1 < max_dim,
-                                             allow_unused=True)
-                rows.append(torch.zeros_like(offset) if h_i is None
-                            else h_i)
-            h = torch.stack(rows, 1)
-    g = g.detach()
+    dev = rec.time.device
+    groups = hess_groups(C, max_dim)
+    if side is not None and tracing.enabled():
+        hess_passes[side] += len(groups)
+    cols = torch.arange(max_dim, device=dev)
+    g, rows = None, []
+    with tracing.span('chain.hess'), torch.enable_grad():
+        for lo, R in groups:
+            rep = lambda x: x.repeat((R,) + (1,) * (x.ndim - 1)) \
+                if x.ndim else x
+            x = torch.zeros((R * C, max_dim), device=dev, requires_grad=True)
+            f = log_luminance_fn(scene, opts, tree_map(rep, rec),
+                                 bake=tree_map(rep, bake))(x)
+            (gx,) = torch.autograd.grad(f.sum(), x, create_graph=True)
+            if g is None:
+                g = gx[:C].detach()
+            e = (cols == torch.arange(lo, lo + R, device=dev)[:, None]).to(
+                gx.dtype)
+            e = e[:, None].expand(R, C, max_dim).reshape(R * C, max_dim)
+            (hx,) = torch.autograd.grad(gx, x, grad_outputs=e,
+                                        allow_unused=True)
+            hx = torch.zeros_like(x) if hx is None else hx
+            rows.append(hx.view(R, C, max_dim))
+    h = torch.cat(rows).transpose(0, 1)
     finite = (torch.isfinite(g).all(-1)
               & torch.isfinite(h).all(-1).all(-1))
     g = torch.where(finite[:, None], g, torch.zeros_like(g))

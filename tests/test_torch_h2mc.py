@@ -7,6 +7,13 @@
   builds; cov_l itself is not compared, its columns' signs are arbitrary).
   A dense sample x = cov_l z + mean satisfies
   (x - mean)^T inv_cov (x - mean) = |z|^2 (rtol 1e-3, f32 products).
+* path_grad_hessian (one replicated-lane pass a row group) against the
+  plain form it replaced, one backward pass a Hessian row, kept here
+  (row_pass_grad_hessian): gradient, Hessian and finite lanes bit for
+  bit, on the small torus at D = 8 with a bake and on the moving open
+  scene at D = 3 without one, each with mixed (s, t) slots and a lane
+  planted non-finite; and with HESS_LANES forcing 2 and 4 row groups,
+  bit for bit with one group.
 * path_grad_hessian on the small generated torus (D = 3, slot (3, 0)):
   its gradient equals path_grad (rtol 1e-5), H is symmetric within the
   tolerance of the JAX package's own test (rtol 1e-2, atol 2e-2:
@@ -197,6 +204,101 @@ def test_hessian_matches_central_differences(setup):
                 f'lane {lane} column {k}: fd {fd[:dim]} vs H {row[:dim]}'
             checked += 1
     assert checked >= 4
+
+
+def row_pass_grad_hessian(scene, opts, rec, bake=None):
+    """The plain form of path_grad_hessian: one backward of the summed
+    log-luminance with its graph kept, then one backward pass of
+    sum(g[:, i]) for each Hessian row i; non-finite lanes zeroed."""
+    C, Dm = rec.time.shape[0], 2 * rec.max_depth
+    with torch.enable_grad():
+        offset = torch.zeros((C, Dm), requires_grad=True)
+        f = replay.log_luminance_fn(scene, opts, rec, bake=bake)(offset)
+        (g,) = torch.autograd.grad(f.sum(), offset, create_graph=True)
+        rows = []
+        for i in range(Dm):
+            (h_i,) = torch.autograd.grad(g[:, i].sum(), offset,
+                                         retain_graph=i + 1 < Dm,
+                                         allow_unused=True)
+            rows.append(torch.zeros_like(offset) if h_i is None else h_i)
+        h = torch.stack(rows, 1)
+    g = g.detach()
+    finite = (torch.isfinite(g).all(-1)
+              & torch.isfinite(h).all(-1).all(-1))
+    return (torch.where(finite[:, None], g, torch.zeros_like(g)),
+            torch.where(finite[:, None, None], h, torch.zeros_like(h)),
+            finite)
+
+
+MIXED_B = 64
+
+
+@pytest.fixture(scope='module', params=['bake', 'no_bake'])
+def mixed(request, tmp_path_factory):
+    """MIXED_B proposal records of mixed (s, t) slots (each lane's slot of
+    largest ls_score), as the H2MC step makes them: the small torus at D =
+    8 with its bake ('bake'), or the moving open scene of
+    test_torch_motion_paths at D = 3 without one ('no_bake'). One lane
+    whose camera walk continues has NaN Russian-roulette weights, so its
+    gradient is not finite. Returns (scene, opts, record, bake or None,
+    the planted lane, path_grad_hessian's result)."""
+    from langevin_mcmc_tpu_torch.scene.parse import parse_scene
+    baked = request.param == 'bake'
+    d = 8 if baked else 3
+    xml = testscenes.write_scene(
+        str(tmp_path_factory.mktemp(request.param)), small=True, width=64,
+        height=48, max_depth=d, kernel='h2mc',
+        scene='box' if baked else 'open', motion=not baked)
+    ts, opts, _ = parse_scene(xml, device='cpu')
+    opts = opts.replace(max_depth=d)
+    assert ts.has_motion != baked
+    u = np.random.default_rng(31).random((MIXED_B, trace.Tape.size(d)),
+                                         dtype=np.float32)
+    with torch.no_grad():
+        rec, con, _, _ = trace.generate_path_bidir(
+            ts, opts, trace.Tape(torch.as_tensor(u), d), min_depth=-1,
+            max_depth=d)
+        flat, s_tags, t_tags = con.flatten()
+        pick = torch.argmax(flat['ls_score'], 1)
+        r = to_subpath(rec, torch.as_tensor(s_tags)[pick],
+                       torch.as_tensor(t_tags)[pick])
+        noise = dict(time=torch.zeros(MIXED_B),
+                     cam_disc=torch.zeros(MIXED_B, d),
+                     lgt_disc=torch.zeros(MIXED_B, d))
+        out = replay.replay_path(ts, opts, r, torch.zeros(MIXED_B, 2 * d),
+                                 noise, collect_bake=baked)
+    new_rec, bake = out[0], (out[2] if baked else None)
+    assert len(set(zip(r.cam_depth.tolist(), r.lgt_depth.tolist()))) >= 4
+    lane = int(torch.nonzero(new_rec.cam_depth >= 3)[0])
+    cam_rr = new_rec.cam_rr.clone()
+    cam_rr[lane] = float('nan')
+    new_rec = dataclasses.replace(new_rec, cam_rr=cam_rr)
+    return (ts, opts, new_rec, bake, lane,
+            replay.path_grad_hessian(ts, opts, new_rec, bake=bake))
+
+
+def test_grad_hessian_matches_row_passes(mixed):
+    ts, opts, rec, bake, lane, got = mixed
+    want = row_pass_grad_hessian(ts, opts, rec, bake=bake)
+    for name, x, y in zip(('gradient', 'Hessian', 'finite'), got, want):
+        np.testing.assert_array_equal(to_np(x), to_np(y), err_msg=name)
+    g, h, finite = (to_np(x) for x in got)
+    # the planted lane alone is zeroed, and the Hessians are not trivial
+    assert not finite[lane] and finite.sum() >= MIXED_B - 2
+    assert not g[lane].any() and not h[lane].any()
+    assert (np.abs(h).reshape(MIXED_B, -1).max(1) > 0).sum() >= MIXED_B // 2
+
+
+@pytest.mark.parametrize('groups', [2, 4])
+def test_row_groups_match_one_group(mixed, groups, monkeypatch):
+    ts, opts, rec, bake, _, one = mixed
+    Dm = 2 * rec.max_depth
+    assert len(replay.hess_groups(MIXED_B, Dm)) == 1
+    monkeypatch.setattr(replay, 'HESS_LANES', Dm * MIXED_B // groups)
+    assert len(replay.hess_groups(MIXED_B, Dm)) == groups
+    got = replay.path_grad_hessian(ts, opts, rec, bake=bake)
+    for name, x, y in zip(('gradient', 'Hessian', 'finite'), got, one):
+        np.testing.assert_array_equal(to_np(x), to_np(y), err_msg=name)
 
 
 @pytest.mark.slow

@@ -3,8 +3,11 @@ CPU and, where there is a card, on it (tests marked cuda; this file
 imports no JAX, so on the card: python -m pytest --noconftest
 tests/test_torch_h2mc_tracing.py -q):
 
-* an H2MC step's stages include chain.hess (the Hessian's row passes,
-  inside chain.grad) and gauss.h2mc (the closed form);
+* an H2MC step's stages include chain.hess (the Hessian's replicated-lane
+  pass, inside chain.grad) and gauss.h2mc (the closed form);
+* the counter hess_passes reads each side's row groups after one step
+  with tracing on (3, with HESS_LANES set to force them), and 0 with it
+  off;
 * the counters h2mc_lanes, h2mc_fallback and hess_nonfinite of each
   side against the lanes counted by hand on a planted step: lanes that
   mix, take a large step or hold their Gaussian, and lanes whose frozen
@@ -144,6 +147,30 @@ def test_h2mc_counters_match_a_hand_count(h2mc_box, traced_cpu,
     assert want['hess_nonfinite']['cur'] > 0
     assert want['hess_nonfinite']['prop'] > 0
     assert want['h2mc_lanes']['cur'] == Kc
+
+
+@pytest.mark.parametrize('traced', [False, True])
+def test_hess_passes_count_row_groups(h2mc_box, traced, monkeypatch):
+    scene, opts, gen, b, ld, banked = h2mc_box
+    state, z, noise, use_iso, skip = _inputs(scene, opts, banked)
+    C, Dm = z.shape
+    Kc = min(C, max(int(C * opts.cur_grad_fraction), 8))
+    monkeypatch.setattr(replay, 'HESS_LANES', -(-Dm * C // 3))
+    want = dict(cur=len(replay.hess_groups(Kc, Dm)),
+                prop=len(replay.hess_groups(C, Dm)))
+    assert want['prop'] == 3 and want['cur'] >= 1
+    if traced:
+        tracing.enable('cpu')
+    try:
+        a = tracing.snapshot()
+        with torch.no_grad():
+            chain.small_step_h2mc(scene, opts, state, z, noise,
+                                  use_iso=use_iso, skip_lanes=skip)
+        d = tracing.delta(a, tracing.snapshot())
+    finally:
+        tracing.disable()
+    assert d['launches']['hess_passes'] == (
+        want if traced else dict(cur=0, prop=0))
 
 
 def _stubbed(monkeypatch):
