@@ -48,16 +48,16 @@ Phases (any failure exits non-zero before the last line is printed):
   5. the BVH (ops/bvh.py, csrc/bvh.cu) on the box, the open scene and the
      moving open scene: ptxas's registers, stack frame, spills and shared
      memory of each kernel instantiation; attach_bvh (build_bvh in numpy
-     and pack_bvh), pack_bvh alone and build_bvh_native seconds; the
-     kernel, closest and any hit, against its plain version
-     (traverse_reference) bit for bit on the rays of phases 3 and 4 and
-     of path F's brute-force query, at 65,536 rays and the large step's
-     4,260, with its time, the plain version's (one run), the inner nodes
-     and triangles a live ray (counted by the plain version: mean, 99th
-     percentile, max), the divergence (the mean over warps of the most
-     loop steps of a lane over the warp's mean) and its bound; beside
-     K1/K2 on the same static rays (kernel alone and whole query) and the
-     brute-force kernel on the same moving rays;
+     and pack_bvh) and pack_bvh alone seconds; the kernel, closest and any
+     hit, against its plain version (traverse_reference) bit for bit on
+     the rays of phases 3 and 4 and of path F's brute-force query, at
+     65,536 rays and the large step's 4,260, with its time, the plain
+     version's (one run), the inner nodes and triangles a live ray
+     (counted by the plain version: mean, 99th percentile, max), the
+     divergence (the mean over warps of the most loop steps of a lane over
+     the warp's mean) and its bound; beside K1/K2 on the same static rays
+     (kernel alone and whole query) and the brute-force kernel on the same
+     moving rays;
   5b. the brute-force kernel (ops/intersect.py brute_force, csrc/brute.cu):
      ptxas's registers, stack, spills and shared memory of each
      instantiation; closest and any hit against the plain version
@@ -80,116 +80,85 @@ Phases (any failure exits non-zero before the last line is printed):
      (same tape);
   8. path A, the MALA render through the CLI entry point: 1024x768,
      maxdepth 8, 65,536 chains, 300,000 bootstrap samples, directspp 1,
-     --spp 1 (12 chain iterations, one call of the multi-step); it runs
-     K1/K2. Then the graph phase of path A's configuration
-     (graph_parity): from one bootstrapped state and one generator state,
-     8 eager iterations (make_mlt_step, with no host sync outside the
-     eager calls: torch.cuda.set_sync_debug_mode('error')) and the same 8
-     through the multi-step (a warm-up, the capture, replays): the chain
-     state bit for bit, step.counts and every kernel's launches equal,
-     the film to rtol 1e-5; then eager and captured ms an iteration side
-     by side. Every MCMC path but H has such a graph phase after its
-     render (PARITY_STEPS iterations);
-  9. path B, the same configuration with H2MC small steps and
-     LMCMC_ISECT_BACKEND=pallas, so it runs K4, through render_mlt cut to
-     4 chain iterations (PATH_B_STEPS; an H2MC iteration takes ~15-21 s);
-     the ratio of the two chain loops' proposals/s is the H2MC/MALA cost
-     ratio at the same tuning; its graph phase holds the step split into
-     graphs around the eigh calls (ops/graphs.eager_call) against the
-     eager step;
- 10. path C, the MC integrator on the flagship scene (--spp 1) with
-     LMC_CW_VMEM_BYTES=6291456, so it runs K3;
- 11. path D, path A's configuration on the open scene; it runs K1/K2;
- 12. path E, path A's configuration with multiplexed and cache-seeded large
-     steps and light-coordinate sampling (largestepmultiplexed, samplecache,
-     uselightcoordinatesampling): generate_subpath and the cache branch's
-     perturb replay send their ray queries through K1/K2. It prints the
-     large-step lanes of each branch, the cache rows that filled and the
-     generated lanes that carried light-coordinate parameters;
- 13. the graph phase of path E's configuration: graph_parity (below,
-     after path A) on path E's state bootstrapped at full width with the
-     seed states (paths included) pushed twice into the cache, so that
-     every row they reach is full: the cache branch runs (it must, on some
-     lanes) and no lane starts in the gradient phase, so the captured
-     step's gradient branches (ops/graphs.cond_call) are skipped; their
-     runs and skips are printed, and the replays are timed again with the
-     branches computed and selected (as before cond_call) in this call;
- 14. path H, path E's configuration with --spp 6 rendered by two ranks of
-     the CLI (--coordinator 127.0.0.1:<free port> --num-processes 2
+     --spp 1 (12 chain iterations, one call of the multi-step); its chain
+     loop must run from CUDA graphs (graphs a step, the eager calls
+     between them, the cond_call branches and their runs, nodes, and
+     n_done equal to the iterations scheduled);
+  9. path C, the MC integrator on the flagship scene (--spp 1) with
+     LMC_CW_VMEM_BYTES=6291456: the launches of K3 (the resident walk);
+ 10. the graph phases (graph_parity), one a configuration, each from one
+     bootstrapped state and one generator state: PARITY_STEPS eager
+     iterations (make_mlt_step, with no host sync outside the eager calls:
+     torch.cuda.set_sync_debug_mode('error')) and the same through the
+     multi-step (a warm-up, the capture, replays): the chain state bit for
+     bit, step.counts and every kernel's launches equal, the film to rtol
+     1e-5 and checked (below); then eager and captured ms an iteration.
+     The configurations:
+     A  path A's (K1/K2, the kNN query);
+     B  path A's with H2MC small steps and LMCMC_ISECT_BACKEND=pallas
+        (K4): the step split into graphs around the eigh calls
+        (ops/graphs.eager_call);
+     D  path A's on the open scene (K1/K2 on its rows; sky);
+     E  path A's with multiplexed and cache-seeded large steps and
+        light-coordinate sampling (largestepmultiplexed, samplecache,
+        uselightcoordinatesampling), the seed states (paths included)
+        pushed twice into the cache first, so that every row they reach
+        is full: the cache branch must run, a multiplexed large step too,
+        and some generated lane must carry light-coordinate parameters;
+     F  D's with --motion (the torus and the quad light turn and move
+        between two keyframes, the camera pans, the env map turns): every
+        ray query is the brute-force kernel, inside the graphs: both of its
+        variants launch, no walk kernel does, the step makes no eager call
+        and has as many graphs as D's (sky);
+     G  path A's with neither mala nor h2mc: the isotropic-only chain
+        through K1/K2;
+     I  F's with a BVH attached (neither package's CLI attaches one): every
+        query takes the BVH kernel, no brute-force or walk kernel (sky);
+ 11. path H, E's configuration with --spp 6 rendered by two ranks of the
+     CLI (--coordinator 127.0.0.1:<free port> --num-processes 2
      --process-id 0/1; each rank is `python3 chip_smoke.py --rank OUT
      CLI-ARGS...`) that share the card, so their collectives take gloo:
      32,768 chains and 150,000 bootstrap samples a rank, 72 iterations
      asked for and 80 run (whole calls of 16, as the JAX package's
      multihost loop runs them), one cache merge. The ranks' reduced chain
-     films must be
-     bit-identical and their b equal, their final films equal to rtol
-     1e-5, each film checked, K1/K2 launched on both; per rank its phase
-     seconds, ms an iteration, proposals/s, acceptance, peak memory, the
-     merge's ms and bytes and the film reduce's ms, and the two ranks'
-     summed proposals/s over path E's;
- 15. path F, path D's configuration with --motion (the torus and the quad
-     light turn and move between two keyframes, the camera pans, the env
-     map turns), through the CLI (--spp 1, 12 iterations): every ray
-     query is the brute-force kernel, captured in the step's graphs, so
-     the step has no eager call and as many graphs as path D's; the
-     frozen replay and path_grad run without a bake. It prints its
-     replays' ms and proposals/s over path D's in this call and beside
-     PR 10's torch brute force (PERF.md, another call); it fails unless
-     both variants of the kernel launched, no walk kernel did, and its
-     graphs a step equal path D's;
- 16. path G, path A's configuration with neither mala nor h2mc: the
-     isotropic-only chain through K1/K2;
- 17. path I, path F's configuration with a BVH attached, through the API
-     (parse_scene, attach_bvh, render_mlt; neither package's CLI attaches
-     one): every query must take the BVH kernel (no brute-force query, no
-     walk kernel); its proposals/s over path F's and path D's.
+     films must be bit-identical and their b equal, their final films
+     equal to rtol 1e-5, each film checked, K1/K2 launched on both; each
+     rank's full log is under smoke_out/chip_smoke/path_h/.
 Phase 7 also holds generate_subpath with light-coordinate sampling (mixed
 (s, t) per lane) on the card against the CPU.
-Every MCMC path (A, B, D, E, F, G, H, I) runs its chain loop through
-make_mlt_multi_step (integrators/mlt.py): CUDA graphs of the chain step
-on the card, n_inner iterations a call on the JAX package's schedule. Per
-path it prints the graphs a step and the eager calls between them (named:
-H2MC's torch.linalg.eigh reads its error flags on the host, so path B's
-step is split around two eigh calls), the cond_call branches (MALA's two gradients) and how often they
-ran, their nodes, the capture and instantiate seconds, and n_done
-against the iterations scheduled, which must be equal. The render's
-first iteration (eager, lazy set-up included) is printed beside its
-replays; eager against captured ms an iteration comes from the graph
-phases, summed up in one line. Each render's film must be finite, non-negative, non-zero
-and 768x1024x3 (path D's and path F's top rows, the sky, lit too), and
-each kernel must have been launched by the path that runs it (the launch
-counts are reset just before each path and read just after; a captured
-kernel counts once per execution: ops/graphs.py). Each MCMC path prints
-its chain-loop ms per iteration (the warm-up and the capture included),
-proposals/s, acceptance rate, bootstrap and direct-pass seconds and peak
-device memory (the graphs' pool included).
+A checked film is finite, non-negative, non-zero and 768x1024x3 (sky: a
+graph phase adds a direct pass, and the top rows must be lit too). Each
+kernel must have been launched by the configuration that runs it (the
+launch counts are reset before and read after; a captured kernel counts
+once per execution: ops/graphs.py).
 The line before the last two is {"kernels": [...]}: per kernel its
-launches on its path (K1/K2 also on path E: launches_path_e), max |error|
-against the plain version, its time and
-the plain version's (ms; ms is one call of the wrapper on an idle card,
-ms_launches one of 20 calls back to back, the host's time to enqueue a
-call hidden behind the card's work), and its bound: the larger of the f32 operations
-this run's data needs (40 per ray-triangle test, 25 per ray-AABB slab
-test: 256 rays x all chunks per block) over the 67 TFLOP/s f32 peak and
-its bytes (each input read once, each output written once) over 3.35 TB/s
-(H100 SXM data sheet). No PyTorch call
-computes a closest-hit ray query, so library_ms is null. The open scene's
-K1/K2 rows (names ending in _open) also carry miss_share. The BVH rows
-(bvh_{closest,any}_hit_{box,open,motion}, "pallas": false: the JAX
-traversal is an XLA loop, not a Pallas kernel) carry their launches on
-path I, and a bound from the work the plain version counts: 25 f32
-operations per ray-box test (two per inner node), 61 per Moller-Trumbore
-test (28 more for a moving triangle's lerp); also the work's spread and
-divergence, ptxas's report, pack_bvh's seconds and the large step's
-numbers (large_step). The brute-force rows (brute_{closest,any}_hit_
-motion, "pallas": false: the JAX brute force is an XLA scan) carry their
-launches on path F, a bound from the tests the function needs on this
-run's rays, as the brute force tests them (61 f32 operations a test, +
-28 for the moving lerp), the pairs the kernel's rays test (pairs_tested)
-and the tiles on a block's list, the tile ranges S, the large step's
-numbers (large_step) and the static box's (static_box). The
-K1-K4 rows carry matmul_sweep_ms: one matmul-sweep query on their rays
-(several torch calls, not one library call).
+launches (in the captured iterations of its configuration's graph phase;
+K3's in path C's render; K1/K2 also launches_path_e and launches_path_g,
+the kNN query launches_path_a and launches_path_e), max |error| against
+the plain version, its time and the plain version's (ms; ms is one call
+of the wrapper on an idle card, ms_launches one of 20 calls back to back,
+the host's time to enqueue a call hidden behind the card's work), and its
+bound: the larger of the f32 operations this run's data needs (40 per
+ray-triangle test, 25 per ray-AABB slab test: 256 rays x all chunks per
+block) over the 67 TFLOP/s f32 peak and its bytes (each input read once,
+each output written once) over 3.35 TB/s (H100 SXM data sheet). No
+PyTorch call computes a closest-hit ray query, so library_ms is null. The
+open scene's K1/K2 rows (names ending in _open) also carry miss_share.
+The BVH rows (bvh_{closest,any}_hit_{box,open,motion}, "pallas": false:
+the JAX traversal is an XLA loop, not a Pallas kernel) carry their
+launches in I's graph phase, and a bound from the work the plain version
+counts: 25 f32 operations per ray-box test (two per inner node), 61 per
+Moller-Trumbore test (28 more for a moving triangle's lerp); also the
+work's spread and divergence, ptxas's report, pack_bvh's seconds and the
+large step's numbers (large_step). The brute-force rows (brute_{closest,
+any}_hit_motion, "pallas": false: the JAX brute force is an XLA scan)
+carry their launches in F's graph phase, a bound from the tests the
+function needs on this run's rays, as the brute force tests them (61 f32
+operations a test, + 28 for the moving lerp), the pairs the kernel's rays
+test (pairs_tested) and the tiles on a block's list, the tile ranges S,
+the large step's numbers (large_step) and the static box's (static_box).
+The K1-K4 rows carry matmul_sweep_ms: one matmul-sweep query on their
+rays (several torch calls, not one library call).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -208,7 +177,6 @@ OUT = os.path.join(HERE, 'smoke_out', 'chip_smoke')
 INIT_SAMPLES = 300000   # numinitsamples of the flagship render
 CHUNK = 32768           # wavefront of the bootstrap and direct passes
 RESIDENT_BYTES = 6291456  # LMC_CW_VMEM_BYTES of path C
-PATH_B_STEPS = 4        # path B's chain iterations (H2MC: ~15-21 s each)
 # graph phases' iterations: 8 on paths A and E; 3 on H2MC (path B), whose
 # eager iterations take seconds; 4 on the others. From the third on, an
 # iteration is a replay.
@@ -1205,56 +1173,36 @@ def brute_phase(xml, xml_f):
     return rows
 
 
-def render(label, xml, env, sky=False, num_steps=None):
-    """One render through the CLI with env set around it (with num_steps,
-    through render_mlt, cut to that many chain iterations). Checks the
-    film (sky: its top rows must be lit too); returns (the CLI's result,
-    launch counts of this render by row key)."""
+def render(label, xml, env):
+    """One render through the CLI with env set around it. Checks the film;
+    returns (the CLI's result, launch counts of this render by row key)."""
     from langevin_mcmc_tpu_torch.__main__ import main as cli_main
-    from langevin_mcmc_tpu_torch.integrators.mlt import render_mlt
-    from langevin_mcmc_tpu_torch.mcmc import cache as cache_mod
-    from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
-    from langevin_mcmc_tpu_torch.ops import intersect
-    from langevin_mcmc_tpu_torch.ops import sweep_isect as sw
-    from langevin_mcmc_tpu_torch.scene.parse import parse_scene
+    from langevin_mcmc_tpu_torch.ops import tracing
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
+    tracing.reset_launches()
     try:
-        if num_steps is None:
-            res = cli_main([xml, '--spp', '1', '--chunk', str(CHUNK),
-                            '--output-dir', os.path.join(OUT, label),
-                            '--device', 'cuda'])[0]
-        else:
-            t0 = time.time()
-            scene, opts, _ = parse_scene(xml, device='cuda')
-            gen = torch.Generator(device='cuda').manual_seed(
-                opts.seed_offset)
-            res = dict(opts=opts, timings={})
-            with torch.no_grad():
-                film, res['b'] = render_mlt(scene, opts, gen,
-                                            num_steps=num_steps, chunk=CHUNK,
-                                            timings=res['timings'])
-            res['film'] = film.cpu().numpy()
-            res['seconds'] = time.time() - t0
+        res = cli_main([xml, '--spp', '1', '--chunk', str(CHUNK),
+                        '--output-dir', os.path.join(OUT, label),
+                        '--device', 'cuda'])[0]
     finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-    launches = dict(cw.launch_counts)
-    launches.update({'sweep_' + k: v for k, v in sw.launch_counts.items()})
-    launches.update({'brute_' + k: v
-                     for k, v in intersect.launch_counts.items()})
-    launches['knn_query'] = cache_mod.launch_counts['query']
-    log(f'{label}: {env or "default backends"}; total {res["seconds"]:.2f} '
-        f's, peak device memory '
+        restore(saved)
+    launches = all_launches()
+    log(f'{label}: {env or "default backends"}; peak device memory '
         f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
     log(f'{label}: kernel launches {launches}')
-    check_film(label, res['film'], sky)
+    check_film(label, res['film'])
     return res, launches
+
+
+def restore(saved):
+    """Set the environment variables back to `saved` (None: unset)."""
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
 
 
 def check_film(label, film, sky=False):
@@ -1277,73 +1225,24 @@ def check_film(label, film, sky=False):
             raise AssertionError(f'{label}: the sky is dark')
 
 
-def chain_rate(label, res):
-    """Print a render's phase times, proposals/s and acceptance rate;
-    returns the chain loop's proposals/s."""
-    tm = res['timings']
-    res['replay_ms'] = graph_line(label, tm)
-    proposals = tm['steps'] * res['opts'].num_chains
-    props = proposals / tm['loop_s']
-    log(f'{label}: b = {res["b"]:.6g}; direct {tm["direct_s"]:.2f} s, '
-        f'bootstrap {tm["bootstrap_s"]:.2f} s, chain loop {tm["loop_s"]:.2f} '
-        f's ({tm["steps"]} iterations, {tm["loop_s"] / tm["steps"] * 1e3:.1f} '
-        f'ms each), {props:.1f} proposals/s, acceptance '
-        f'{tm["accepts"] / proposals:.4f} ({tm["accepts"]} of {proposals})')
-    return props
-
-
 def graph_line(label, tm):
     """A render's captured chain loop (render_mlt's timings): graphs a
     step, the eager calls between them (named), the cond_call branches
-    and how often they ran and were skipped, their nodes, the capture and
-    instantiate seconds, n_done against the iterations scheduled, which
-    must be equal; and the ms of the render's first iteration (eager, the
-    process's first step of this configuration: lazy set-up included, so
-    no eager time to compare: that is the graph phase's) beside its
-    replays (the chain loop less the warm-ups, the capturing iterations
-    and the cache merges, over the iterations left). Returns the replays'
-    ms an iteration, or None."""
+    and how often they ran and were skipped, their nodes, and n_done
+    against the iterations scheduled, which must be equal."""
     scheduled = tm.get('calls', tm['steps'] // tm['n_inner']) * tm['n_inner']
-    replays = tm['steps'] - 2 * tm.get('warmups', 0)
-    captured = None
-    if tm.get('warmups') and replays > 0:
-        first = tm['warmup_s'] / tm['warmups'] * 1e3
-        captured = (tm['loop_s'] - tm['warmup_s'] - tm['capture_pass_s']
-                    - tm.get('merge_s', 0.0)) / replays * 1e3
-        log(f'{label}: first iteration (eager warm-up, lazy set-up '
-            f'included) {first:.1f} ms; replays {captured:.1f} ms an '
-            f'iteration ({replays} of them); the capturing iteration '
-            f'{tm["capture_pass_s"]:.2f} s')
     log(f'{label}: chain loop from CUDA graphs: {tm.get("graphs", 0)} '
         f'graph(s) a step, {tm.get("eager_calls", 0)} eager call(s) between '
         f'them {tm.get("eager_fns", [])}, {tm.get("branches", 0)} '
         f'cond_call branch(es) (ran {tm.get("branch_runs", 0)}, skipped '
         f'{tm.get("branch_skips", 0)}), {tm.get("graph_nodes", 0)} nodes; '
-        f'capture {tm.get("capture_s", 0.0):.2f} s, instantiate '
-        f'{tm.get("instantiate_s", 0.0):.2f} s; n_done {tm["n_done"]} of '
-        f'{scheduled} iterations scheduled (calls of {tm["n_inner"]})')
+        f'n_done {tm["n_done"]} of {scheduled} iterations scheduled (calls '
+        f'of {tm["n_inner"]})')
     if tm.get('graphs', 0) < 1:
         raise AssertionError(f'{label}: the chain loop ran no CUDA graph')
     if tm['n_done'] != scheduled or tm['steps'] != scheduled:
         raise AssertionError(f'{label}: n_done {tm["n_done"]}, steps '
                              f'{tm["steps"]}, scheduled {scheduled}')
-    return captured
-
-
-def large_step_line(label, res, lc_counter):
-    """Path E's large-step lanes per branch, cache rows and
-    light-coordinate lanes."""
-    tm = res['timings']
-    log(f'{label}: large-step lanes {tm["large"]} (multiplexed {tm["mmlt"]}, '
-        f'cache {tm["cache"]}, cache accepts {tm["cache_accepts"]}); cache '
-        f'rows full at the end {tm["cache_rows_ready"]} of '
-        f'{res["opts"].pss_max_length + 1}; generated lanes with '
-        f'light-coordinate parameters {int(lc_counter["lanes"])} '
-        f'(bootstrap and large steps); snapshot writes {tm["report_s"]:.2f} s')
-    if tm['large'] <= 0 or tm['mmlt'] <= 0:
-        raise AssertionError(f'{label}: no multiplexed large step ran')
-    if int(lc_counter['lanes']) <= 0:
-        raise AssertionError(f'{label}: no lane took light coordinates')
 
 
 def cache_bytes(cache):
@@ -1401,22 +1300,22 @@ def sync_free(fn):
             m.eager_call = graphs.eager_call
 
 
-def _kernel_modules():
+def all_launches():
+    """Every kernel wrapper's launch counts by row key: the chunk walk's
+    keys, then the sweep's, the brute force's and the BVH's under their
+    prefixes, and the kNN query's."""
     from langevin_mcmc_tpu_torch.mcmc import cache
     from langevin_mcmc_tpu_torch.ops import (bvh, chunkwalk, intersect,
                                              sweep_isect)
-    return chunkwalk, sweep_isect, bvh, intersect, cache
+    out = dict(chunkwalk.launch_counts)
+    for prefix, m in (('sweep_', sweep_isect), ('brute_', intersect),
+                      ('bvh_', bvh), ('knn_', cache)):
+        out.update({prefix + k: v for k, v in m.launch_counts.items()})
+    return out
 
 
-def all_launches():
-    """Every kernel wrapper's launch counts, by module."""
-    return {m.__name__.rsplit('.', 1)[1]: dict(m.launch_counts)
-            for m in _kernel_modules()}
-
-
-def reset_launches():
-    for m in _kernel_modules():
-        m.reset_launch_counts()
+WALK_KEYS = ('split_closest_hit', 'split_any_hit', 'closest_hit_resident',
+             'any_hit_resident', 'sweep_closest_hit', 'sweep_any_hit')
 
 
 def timed(fn):
@@ -1428,33 +1327,26 @@ def timed(fn):
     return out, time.time() - t0
 
 
-def unconditional(flag, fn, *args):
-    """ops/graphs.cond_call as it runs outside a capture: the branch on
-    every call, selected on the device (what a captured step ran before
-    cond_call captured its branches apart)."""
-    out = fn(*args)
-    sel = lambda o: torch.where(flag, o, torch.zeros_like(o))
-    return tuple(map(sel, out)) if isinstance(out, tuple) else sel(out)
-
-
-def graph_parity(label, xml, prefill=False, steps=8, env=None, bvh=False):
+def graph_parity(label, xml, prefill=False, steps=8, env=None, bvh=False,
+                 sky=False):
     """From one bootstrapped state and one generator state at full width:
     `steps` iterations of the eager step (make_mlt_step, under sync_free:
     no host sync outside eager_call), then the same through one call of
     make_mlt_multi_step (the warm-up, the capture, replays). The chain
     state must be equal bit for bit, step.counts and every kernel's
     launches equal; the film is held to rtol 1e-5 (index_add_ splats with
-    atomics). Then one more call of the multi-step (all replays) from
-    where it stood, timed: eager (the first `steps`, run after the path's
-    render in this process, so warm) and captured ms an iteration side by
+    atomics) and checked (check_film; sky: with a direct pass added, its
+    top rows lit too, as in a render). Then one
+    more call of the multi-step (all replays) from where it stood, timed:
+    eager (the first `steps`, warm) and captured ms an iteration side by
     side. env: environment variables set around it (path B's backend);
     bvh: attach a BVH (path I). prefill: path E's configuration with the
     seed states (paths included) pushed twice into the cache, so that
     every row they reach is full: the cache-seeded large step and the
     cache phase run from the first iteration (it must take the cache
-    branch) and no lane needs a gradient; the same replays are also timed
-    with the gradient branches unconditional (computed and selected, as
-    before cond_call), in this call. Returns (eager ms, captured ms)."""
+    branch) and no lane needs a gradient. Returns the captured step's
+    graph record (tracing.graph_record) with its 'launches' (all_launches
+    of the captured iterations) and 'counts' (step.counts)."""
     from langevin_mcmc_tpu_torch.scene.parse import parse_scene
     from langevin_mcmc_tpu_torch.ops import bvh as bvh_mod
     env = env or {}
@@ -1464,22 +1356,18 @@ def graph_parity(label, xml, prefill=False, steps=8, env=None, bvh=False):
         scene, opts, _ = parse_scene(xml, device='cuda')
         if bvh:
             scene = bvh_mod.attach_bvh(scene)
-        return _graph_parity(label, scene, opts, prefill, steps)
+        return _graph_parity(label, scene, opts, prefill, steps, sky)
     finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+        restore(saved)
 
 
-def _graph_parity(label, scene, opts, prefill, steps):
+def _graph_parity(label, scene, opts, prefill, steps, sky):
     from langevin_mcmc_tpu_torch.integrators import mlt
-    from langevin_mcmc_tpu_torch.mcmc import chain
+    from langevin_mcmc_tpu_torch.integrators.pathtrace import render_direct
+    from langevin_mcmc_tpu_torch.ops import tracing
     from langevin_mcmc_tpu_torch.utils.tree import tree_leaves
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device='cuda').manual_seed(2)
-    C = opts.num_chains
     shape = (scene.height, scene.width, 3)
     with torch.no_grad():
         (b, ld, init), t_boot = timed(lambda: mlt.bootstrap(
@@ -1505,14 +1393,17 @@ def _graph_parity(label, scene, opts, prefill, steps):
             for _ in range(n):
                 banked = step(gen, banked, film, init)
             return banked
-        reset_launches()
+        tracing.reset_launches()
         want, t_e = timed(lambda: sync_free(
             lambda: eager(banked0, film_e, steps)))
         launches_e = all_launches()
+        # a capture cannot free the eager iterations' cached blocks (H2MC's
+        # Hessian takes ~30 GB a step), so free them first
+        torch.cuda.empty_cache()
         gen.set_state(state0)
         multi = mlt.make_mlt_multi_step(scene, opts, b, lsp, steps,
                                         length_dist=ld)
-        reset_launches()
+        tracing.reset_launches()
         (got, film_c, n_done), t_c1 = timed(lambda: multi(
             gen, banked0, torch.zeros(shape, device='cuda'), init))
         launches_c = all_launches()
@@ -1528,14 +1419,15 @@ def _graph_parity(label, scene, opts, prefill, steps):
         cache_same = (want.cache is None or all(
             torch.equal(a, c) for a, c in zip(tree_leaves(want.cache),
                                               tree_leaves(got.cache))))
-        g = multi.graphs
+        rec = tracing.graph_record(multi.graphs)
         log(f'{label}: {steps} eager iterations (no host sync outside the '
             f'eager calls) and the same {steps} through the multi-step '
-            f'({len(g.graphs)} graph(s), {len(g.calls)} eager call(s), '
-            f'{len(g.branches)} cond_call branch(es): ran {g.branch_runs}, '
-            f'skipped {g.branch_skips}; {sum(g.nodes)} nodes; capture '
-            f'{g.capture_s:.2f} s, instantiate {g.instantiate_s:.2f} s) from '
-            f'one state: n_done {int(n_done)}; chain state '
+            f'({rec["graphs"]} graph(s), {rec["eager_calls"]} eager call(s) '
+            f'{rec["eager_fns"]}, {rec["branches"]} cond_call branch(es): '
+            f'ran {rec["branch_runs"]}, skipped {rec["branch_skips"]}; '
+            f'{rec["nodes"]} nodes; capture {rec["capture_s"]:.2f} s, '
+            f'instantiate {rec["instantiate_s"]:.2f} s) from one state: '
+            f'n_done {int(n_done)}; chain state '
             f'{"bit for bit" if not differ else f"leaves {differ} differ"}; '
             f'cache {"equal" if cache_same else "differs"}; counts '
             f'{counts_e} vs {counts_c}; film '
@@ -1546,37 +1438,25 @@ def _graph_parity(label, scene, opts, prefill, steps):
                 or int(n_done) != steps or launches_e != launches_c:
             raise AssertionError(f'{label}: captured and eager iterations '
                                  f'differ')
+        if rec['graphs'] < 1:
+            raise AssertionError(f'{label}: the multi-step ran no CUDA graph')
         if prefill and counts_e['cache'] <= 0:
             raise AssertionError(f'{label}: no lane took the cache branch')
+        film = film_c
+        if sky:     # the sky is lit on the direct pass's paths only
+            film = film_c + render_direct(
+                scene, opts, torch.Generator(device='cuda').manual_seed(3),
+                chunk=CHUNK)
+        check_film(label, film.cpu().numpy(), sky)
         (_, _, n2), t_c2 = timed(lambda: multi(gen, got, film_c, init))
-        uncond_ms = None
-        if prefill:
-            orig = chain.cond_call
-            chain.cond_call = unconditional
-            try:
-                m2 = mlt.make_mlt_multi_step(scene, opts, b, lsp, steps,
-                                             length_dist=ld)
-                m2(gen, banked0, torch.zeros(shape, device='cuda'), init)
-                _, t_u = timed(lambda: m2(gen, banked0, torch.zeros(
-                    shape, device='cuda'), init))
-            finally:
-                chain.cond_call = orig
-            uncond_ms = t_u / steps * 1e3
     ms_e, ms_c = t_e / steps * 1e3, t_c2 / steps * 1e3
     log(f'{label}: eager {ms_e:.1f} ms an iteration, captured {ms_c:.1f} ms '
-        f'an iteration (replays; n_done {int(n2)}), eager / captured '
-        f'{ms_e / ms_c:.3f}; {C / ms_e * 1e3:.1f} vs {C / ms_c * 1e3:.1f} '
-        f'proposals/s; first call of the multi-step (warm-up, capture, '
-        f'replays) {t_c1:.2f} s; peak device memory '
-        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+        f'an iteration (replays; n_done {int(n2)}); first call of the '
+        f'multi-step (warm-up, capture, replays) {t_c1:.2f} s; peak device '
+        f'memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
     if int(n2) != steps:
         raise AssertionError(f'{label}: n_done {int(n2)} of {steps}')
-    if uncond_ms is not None:
-        log(f'{label}: with the gradient branches skipped (cond_call) '
-            f'{ms_c:.1f} ms a replayed iteration; with them computed and '
-            f'selected (unconditional) {uncond_ms:.1f} ms; '
-            f'{uncond_ms / ms_c:.3f}x')
-    return ms_e, ms_c
+    return dict(rec, launches=launches_c, counts=counts_c)
 
 
 def free_port():
@@ -1821,14 +1701,12 @@ def bvh_rays(tag, scene):
 
 def bvh_phase(xml, xml_open, xml_f):
     """The BVH on the box, the open scene and the moving open scene: its
-    numpy and native builds and pack_bvh timed; ptxas's registers, stack
+    build and pack_bvh timed; ptxas's registers, stack
     and spills of each kernel instantiation; the kernel against its plain
     version (closest and any hit, at 65,536 and 4,260 rays; the rays of
     check_kernels, open_rows and brute_phase); on the moving scene the
     whole BVH query beside the brute-force kernel's. Returns the rows of
     the kernels JSON line (65,536 rays), keyed by (variant, scene)."""
-    from langevin_mcmc_tpu_torch.native import build_bvh_native
-    from langevin_mcmc_tpu_torch.native import load_library as load_native
     from langevin_mcmc_tpu_torch.ops import bvh, intersect
     from langevin_mcmc_tpu_torch.scene.parse import parse_scene
     ptxas = ptxas_lines('bvh.cu', 'bvh_kernel')
@@ -1851,22 +1729,13 @@ def bvh_phase(xml, xml_open, xml_f):
                               scene.tri_p)
         torch.cuda.synchronize()
         t_pack = time.time() - t0
-        tp = scene.tri_p.cpu().numpy()
-        load_native()       # the g++ build at first use, not timed here
-        t0 = time.time()
-        nodes, prims = build_bvh_native(tp.min(axis=(0, 2)),
-                                        tp.max(axis=(0, 2)))
-        t_nat = time.time() - t0
-        same = np.array_equal(nodes, scene.bvh_nodes.cpu().numpy()) and \
-            np.array_equal(prims, scene.bvh_prim_ids.cpu().numpy())
         log(f'BVH {tag}: {scene.num_tris} triangles, '
             f'{scene.bvh_nodes.shape[0]} nodes '
             f'({packed.records.shape[0]} records, '
             f'{packed.records.numel() * 4} bytes), '
             f'{bvh.tree_depth(scene.bvh_nodes.cpu().numpy())} levels; '
             f'attach_bvh (build_bvh in numpy + pack_bvh) {t_np:.2f} s, '
-            f'pack_bvh alone {t_pack:.4f} s, build_bvh_native {t_nat:.3f} s '
-            f'(same nodes: {same})')
+            f'pack_bvh alone {t_pack:.4f} s')
         del packed
         org, d, tm, mn, mx = bvh_rays(tag, scene)
         for n in (65536, LARGE_RAYS):
@@ -1915,8 +1784,9 @@ def rank_main(argv):
     sys.path.insert(0, HERE)
     from langevin_mcmc_tpu_torch.__main__ import main as cli_main
     from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
+    from langevin_mcmc_tpu_torch.ops import tracing
     out, args = argv[0], argv[1:]
-    cw.reset_launch_counts()
+    tracing.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     res = cli_main(args)[0]
     np.savez(out + '.npz', film=res['film'], chain_film=res['chain_film'],
@@ -1930,7 +1800,7 @@ def rank_main(argv):
             num_chains=res['opts'].num_chains), f)
 
 
-def path_h(xml_e, rate_e, spp=6):
+def path_h(xml_e, spp=6):
     """Path H: path E's configuration rendered by two ranks of the CLI
     (--coordinator, --num-processes 2, --process-id 0/1) that share the
     card (so the collectives take gloo), each with half the chains and
@@ -1939,8 +1809,8 @@ def path_h(xml_e, rate_e, spp=6):
     iterations, with one cache merge after the fourth call, each call's
     chain loop from CUDA graphs. Checks every rank's film, the
     ranks' reduced chain films bit for bit and their b, their final films
-    to rtol 1e-5 (each rank's direct pass splats with atomics), the merge
-    and K1/K2 on both ranks."""
+    to rtol 1e-5 (each rank's direct pass splats with atomics), the merge,
+    the iterations run and K1/K2 on both ranks."""
     coord = f'127.0.0.1:{free_port()}'
     base = os.path.join(OUT, 'path_h')
     os.makedirs(base, exist_ok=True)
@@ -1955,7 +1825,6 @@ def path_h(xml_e, rate_e, spp=6):
              '--coordinator', coord, '--num-processes', '2',
              '--process-id', str(r)],
             stdout=logs[-1], stderr=subprocess.STDOUT))
-    t0 = time.time()
     try:
         codes = [p.wait(timeout=900) for p in procs]
     finally:
@@ -1965,7 +1834,6 @@ def path_h(xml_e, rate_e, spp=6):
                 p.wait()
         for f in logs:
             f.close()
-    wall = time.time() - t0
     for r in range(2):
         with open(os.path.join(base, f'rank{r}.log')) as f:
             text = f.read()
@@ -1980,24 +1848,13 @@ def path_h(xml_e, rate_e, spp=6):
         z = np.load(os.path.join(base, f'rank{r}.npz'))
         with open(os.path.join(base, f'rank{r}.json')) as f:
             res.append((z, json.load(f)))
-    rates = []
     for r, (z, js) in enumerate(res):
         tm = js['timings']
-        local = js['num_chains'] // tm['world']
-        props = tm['steps'] * local / tm['loop_s']
-        rates.append(props)
         check_film(f'path H rank {r}', z['film'])
-        log(f'path H rank {r}: b = {float(z["b"]):.6g}; bootstrap '
-            f'{tm["bootstrap_s"]:.2f} s, direct {tm["direct_s"]:.2f} s, chain '
-            f'loop {tm["loop_s"]:.2f} s ({tm["steps"]} iterations, '
-            f'{tm["loop_s"] / tm["steps"] * 1e3:.1f} ms each), '
-            f'{props:.1f} proposals/s, acceptance '
-            f'{tm["accepts"] / (tm["steps"] * local):.4f}; peak device '
-            f'memory {js["peak_gib"]:.2f} GiB; {tm["merges"]} cache merges, '
-            f'{tm["merge_s"] * 1e3 / max(tm["merges"], 1):.1f} ms each, '
-            f'{tm["merge_bytes"] / 2**20:.1f} MiB gathered; film reduce '
-            f'{tm["reduce_s"] * 1e3:.1f} ms; kernel launches '
-            f'{js["launches"]}; CLI total {js["seconds"]:.2f} s')
+        log(f'path H rank {r}: b = {float(z["b"]):.6g}; {tm["steps"]} '
+            f'iterations; peak device memory {js["peak_gib"]:.2f} GiB; '
+            f'{tm["merges"]} cache merge(s), {tm["merge_bytes"] / 2**20:.1f} '
+            f'MiB gathered; kernel launches {js["launches"]}')
         graph_line(f'path H rank {r}', tm)
         if tm['merges'] < 1:
             raise AssertionError(f'path H rank {r}: no cache merge ran')
@@ -2014,58 +1871,7 @@ def path_h(xml_e, rate_e, spp=6):
     np.testing.assert_allclose(z0['film'], z1['film'], rtol=1e-5, atol=1e-6)
     log(f'path H: chain films bit-identical on both ranks, b equal, final '
         f'films within rtol 1e-5 (max |diff| '
-        f'{np.abs(z0["film"] - z1["film"]).max():.3g}); both ranks '
-        f'{wall:.1f} s wall; summed proposals/s {sum(rates):.1f} / path E '
-        f'{rate_e:.1f} = {sum(rates) / rate_e:.3f}')
-    return res
-
-
-def path_i(xml_f, rate_f, rate_d):
-    """Path I: path F's configuration (the moving open scene, --spp 1)
-    with a BVH attached, through the API (neither package's CLI attaches
-    one): parse_scene, attach_bvh, render_mlt. No query may take the
-    brute-force kernel or a walk kernel; the BVH kernel must launch.
-    Returns the BVH launch counts."""
-    from langevin_mcmc_tpu_torch.integrators.mlt import render_mlt
-    from langevin_mcmc_tpu_torch.ops import bvh, intersect
-    from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
-    from langevin_mcmc_tpu_torch.ops import sweep_isect as sw
-    from langevin_mcmc_tpu_torch.scene.parse import parse_scene
-    label = 'path I (MALA, moving open scene, BVH)'
-    t0 = time.time()
-    scene, opts, _ = parse_scene(xml_f, device='cuda')
-    t_parse = time.time() - t0
-    scene = bvh.attach_bvh(scene)
-    t_build = time.time() - t0 - t_parse
-    opts = opts.replace(spp=1)
-    reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device='cuda').manual_seed(opts.seed_offset)
-    tm = {}
-    t0 = time.time()
-    with torch.no_grad():
-        film, b = render_mlt(scene, opts, gen, chunk=CHUNK, timings=tm)
-        film = film.cpu().numpy()
-    seconds = time.time() - t0
-    launches = dict(bvh.launch_counts)
-    walks = dict(cw.launch_counts, **sw.launch_counts)
-    brute = dict(intersect.launch_counts)
-    log(f'{label}: parse {t_parse:.2f} s, attach_bvh {t_build:.2f} s, render '
-        f'{seconds:.2f} s, peak device memory '
-        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; BVH kernel '
-        f'launches {launches}, walk launches {walks}, brute-force kernel '
-        f'launches {brute}')
-    check_film(label, film, sky=True)
-    rate_i = chain_rate(label, dict(timings=tm, opts=opts, b=b))
-    log(f'path I / path F chain-loop proposals/s (same call): {rate_i:.1f} / '
-        f'{rate_f:.1f} = {rate_i / rate_f:.3f}; path I / path D: {rate_i:.1f}'
-        f' / {rate_d:.1f} = {rate_i / rate_d:.3f}')
-    if any(brute.values()) or any(walks.values()) \
-            or min(launches.values()) <= 0:
-        raise AssertionError(f'{label}: brute-force launches {brute}, walk '
-                             f'launches {walks}, BVH launches {launches}: '
-                             f'every query must take the BVH kernel')
-    return launches
+        f'{np.abs(z0["film"] - z1["film"]).max():.3g})')
 
 
 def main():
@@ -2139,40 +1945,33 @@ def main():
     check_generation(small_motion)
     check_subpath_generation(small_lc)
 
-    ms = {}     # per path: (eager, captured) ms an iteration, graph phases
-
     def parity(path, xml_p, **kw):
-        ms[path] = graph_parity(f'graph phase, path {path} configuration',
-                                xml_p, steps=PARITY_STEPS[path], **kw)
+        rec = graph_parity(f'graph phase, path {path} configuration', xml_p,
+                           steps=PARITY_STEPS[path], **kw)
         torch.cuda.empty_cache()
+        return rec
 
-    res_a, launch_a = render('path A (MALA)', xml, {})
-    rate_a = chain_rate('path A (MALA)', res_a)
-    parity('A', xml)
-    res_b, launch_b = render('path B (H2MC)', xml_h2mc,
-                             {'LMCMC_ISECT_BACKEND': 'pallas'},
-                             num_steps=PATH_B_STEPS)
-    rate_b = chain_rate('path B (H2MC)', res_b)
-    log(f'H2MC/MALA cost ratio (chain-loop proposals/s, same tuning, same '
-        f'card): {rate_a / rate_b:.3f}')
-    parity('B', xml_h2mc, env={'LMCMC_ISECT_BACKEND': 'pallas'})
+    res_a, _ = render('path A (MALA)', xml, {})
+    graph_line('path A (MALA)', res_a['timings'])
+    ph_a = parity('A', xml)
+    ph_b = parity('B', xml_h2mc, env={'LMCMC_ISECT_BACKEND': 'pallas'})
     _, launch_c = render('path C (MC)', xml_mc,
                          {'LMC_CW_VMEM_BYTES': str(RESIDENT_BYTES)})
-    res_d, launch_d = render('path D (MALA, open scene)', xml_open, {},
-                             sky=True)
-    rate_d = chain_rate('path D (MALA, open scene)', res_d)
-    log(f'path D / path A chain-loop proposals/s (same call): '
-        f'{rate_d:.1f} / {rate_a:.1f} = {rate_d / rate_a:.3f}')
-    parity('D', xml_open)
+    ph_d = parity('D', xml_open, sky=True)
     lc_counter = count_light_coords()
-    res_e, launch_e = render('path E (MALA, multiplexed + cache + light '
-                             'coordinates)', xml_e, {})
-    rate_e = chain_rate('path E', res_e)
-    large_step_line('path E', res_e, lc_counter)
-    log(f'path E / path A chain-loop proposals/s (same call): '
-        f'{rate_e:.1f} / {rate_a:.1f} = {rate_e / rate_a:.3f}')
-    parity('E', xml_e, prefill=True)
-    path_h(xml_e, rate_e)
+    ph_e = parity('E', xml_e, prefill=True)
+    c = ph_e['counts']
+    log(f'path E configuration: large-step lanes {c["large"]} (multiplexed '
+        f'{c["mmlt"]}, cache {c["cache"]}, cache accepts '
+        f'{c["cache_accepts"]}); generated lanes with light-coordinate '
+        f'parameters {int(lc_counter["lanes"])} (bootstrap and large steps)')
+    if c['large'] <= 0 or c['mmlt'] <= 0:
+        raise AssertionError('path E configuration: no multiplexed large '
+                             'step ran')
+    if int(lc_counter['lanes']) <= 0:
+        raise AssertionError('path E configuration: no lane took light '
+                             'coordinates')
+    path_h(xml_e)
 
     scene, _, _ = parse_scene(xml_f, device='cuda')
     log(f'moving open scene: {scene.num_tris} triangles, has_motion '
@@ -2180,71 +1979,54 @@ def main():
         f'{int((scene.tri_p[0] != scene.tri_p[1]).any(-1).any(-1).sum())} '
         f'of them move')
     del scene
-    res_f, launch_f = render('path F (MALA, moving open scene)', xml_f, {},
-                             sky=True)
-    rate_f = chain_rate('path F (MALA, moving open scene)', res_f)
-    tm_f, tm_d = res_f['timings'], res_d['timings']
-    walks_f = {k: v for k, v in launch_f.items()
-               if not k.startswith('brute_') and k != 'knn_query'}
-    log(f'path F: brute-force kernel launches closest / any '
+    ph_f = parity('F', xml_f, sky=True)
+    launch_f = ph_f['launches']
+    walks_f = {k: launch_f[k] for k in WALK_KEYS}
+    log(f'path F configuration: brute-force kernel launches closest / any '
         f'{launch_f["brute_closest_hit"]} / {launch_f["brute_any_hit"]}, '
-        f'eager calls a step {tm_f.get("eager_calls", 0)}, graphs a step '
-        f'{tm_f.get("graphs", 0)} (path D {tm_d.get("graphs", 0)}); '
-        f'walk launches {walks_f}')
-    log(f'path F / path D (same call): replays {res_f["replay_ms"]:.1f} / '
-        f'{res_d["replay_ms"]:.1f} ms an iteration = '
-        f'{res_f["replay_ms"] / res_d["replay_ms"]:.3f}; chain-loop '
-        f'proposals/s {rate_f:.1f} / {rate_d:.1f} = {rate_f / rate_d:.4f}; '
-        f'bootstrap + direct {tm_f["bootstrap_s"]:.2f} + '
-        f'{tm_f["direct_s"]:.2f} s. PERF.md section 5 (PR 10, log call 12, '
-        f'another call, the torch brute force between graphs): replays '
-        f'4,505.3 ms, 13,061.1 proposals/s, bootstrap + direct 100.14 + '
-        f'23.52 s')
+        f'eager calls a step {ph_f["eager_calls"]}, graphs a step '
+        f'{ph_f["graphs"]} (path D configuration {ph_d["graphs"]}); walk '
+        f'launches {walks_f}')
     if min(launch_f['brute_closest_hit'], launch_f['brute_any_hit']) <= 0 \
-            or tm_f.get('eager_calls', 0) or any(walks_f.values()) \
-            or tm_f.get('graphs') != tm_d.get('graphs'):
-        raise AssertionError(f'path F: launches {launch_f}, eager calls '
-                             f'{tm_f.get("eager_calls")}, graphs '
-                             f'{tm_f.get("graphs")} (path D '
-                             f'{tm_d.get("graphs")}): every query of a '
-                             f'moving scene must be the brute-force kernel, '
-                             f'inside the graphs')
-    parity('F', xml_f)
-    res_g, launch_g = render('path G (isotropic-only chain)', xml_g, {})
-    rate_g = chain_rate('path G (isotropic-only chain)', res_g)
-    log(f'path G / path A chain-loop proposals/s (same call): '
-        f'{rate_g:.1f} / {rate_a:.1f} = {rate_g / rate_a:.3f}')
-    parity('G', xml_g)
-    launch_i = path_i(xml_f, rate_f, rate_d)
-    parity('I', xml_f, bvh=True)
-    log('eager / captured ms an iteration, graph phases (same call): '
-        + '; '.join(f'{k} {e:.1f} / {c:.1f} = {e / c:.3f}'
-                    for k, (e, c) in ms.items()))
+            or ph_f['eager_calls'] or any(walks_f.values()) \
+            or ph_f['graphs'] != ph_d['graphs']:
+        raise AssertionError('path F configuration: every query of a moving '
+                             'scene must be the brute-force kernel, inside '
+                             'the graphs')
+    ph_g = parity('G', xml_g)
+    ph_i = parity('I', xml_f, bvh=True, sky=True)
+    launch_i = ph_i['launches']
+    brute_i = {k: launch_i[k] for k in ('brute_closest_hit', 'brute_any_hit')}
+    walks_i = {k: launch_i[k] for k in WALK_KEYS}
+    log(f'path I configuration: BVH kernel launches closest / any '
+        f'{launch_i["bvh_closest_hit"]} / {launch_i["bvh_any_hit"]}, '
+        f'brute-force launches {brute_i}, walk launches {walks_i}')
+    if any(brute_i.values()) or any(walks_i.values()) \
+            or min(launch_i['bvh_closest_hit'], launch_i['bvh_any_hit']) <= 0:
+        raise AssertionError('path I configuration: every query must take '
+                             'the BVH kernel')
+
     for (key, _), row in bvh_rows.items():
-        row['launches'] = launch_i[key]
+        row['launches'] = launch_i['bvh_' + key]
     for key, row in brute_rows.items():
         row['launches'] = launch_f['brute_' + key]
-    knn_row['launches_path_a'] = launch_a['knn_query']
-    knn_row['launches_path_e'] = launch_e['knn_query']
-    for key in ('split_closest_hit', 'split_any_hit'):
-        rows[key]['launches_path_g'] = launch_g[key]
-        if launch_g[key] <= 0:
-            raise AssertionError(f'{rows[key]["name"]} was never launched by '
-                                 f'path G')
-    for key in ('split_closest_hit', 'split_any_hit'):
-        rows[key]['launches_path_e'] = launch_e[key]
-        if launch_e[key] <= 0:
-            raise AssertionError(f'{rows[key]["name"]} was never launched by '
-                                 f'path E')
+    knn_row['launches_path_a'] = ph_a['launches']['knn_query']
+    knn_row['launches_path_e'] = ph_e['launches']['knn_query']
+    for path, ph in (('E', ph_e), ('G', ph_g)):
+        for key in ('split_closest_hit', 'split_any_hit'):
+            rows[key][f'launches_path_{path.lower()}'] = ph['launches'][key]
+            if ph['launches'][key] <= 0:
+                raise AssertionError(f'{rows[key]["name"]} was never '
+                                     f'launched by path {path}')
     for key, row in open_kernel_rows.items():
-        row['launches'] = launch_d[key]
-        if launch_d[key] <= 0:
+        row['launches'] = ph_d['launches'][key]
+        if row['launches'] <= 0:
             raise AssertionError(f'{row["name"]} was never launched by '
                                  f'path D')
-    for key, launches in (('split_closest_hit', launch_a),
-                          ('split_any_hit', launch_a),
-                          ('sweep_closest_hit', launch_b),
-                          ('sweep_any_hit', launch_b),
+    for key, launches in (('split_closest_hit', ph_a['launches']),
+                          ('split_any_hit', ph_a['launches']),
+                          ('sweep_closest_hit', ph_b['launches']),
+                          ('sweep_any_hit', ph_b['launches']),
                           ('closest_hit_resident', launch_c),
                           ('any_hit_resident', launch_c)):
         rows[key]['launches'] = launches[key]

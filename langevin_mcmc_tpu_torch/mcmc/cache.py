@@ -38,11 +38,6 @@ KNN_MAX_K = 8
 KNN_MAX_DIM = 32
 
 
-def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
-
-
 @dataclasses.dataclass
 class GlobalCache:
     pss: torch.Tensor        # [NDIM, SIZE, Dm]

@@ -1,11 +1,11 @@
 """Flattened BVH: host build and per-ray traversal (port of ops/bvh.py).
 
-A binned-SAH BVH is built on the host (numpy, ``build_bvh``; the C++
-build of ``native/`` gives the same layout faster), flattened into one
-[N, 8] f32 node array, and traversed per ray with a stack of STACK_DEPTH
-node indices. The traversal is the CUDA kernel of ``csrc/bvh.cu`` for
-CUDA tensors and its plain torch version ``traverse_reference`` for CPU
-tensors; both compute the JAX package's ``_traverse_one`` for every ray.
+A binned-SAH BVH is built on the host (numpy, ``build_bvh``), flattened
+into one [N, 8] f32 node array, and traversed per ray with a stack of
+STACK_DEPTH node indices. The traversal is the CUDA kernel of
+``csrc/bvh.cu`` for CUDA tensors and its plain torch version
+``traverse_reference`` for CPU tensors; both compute the JAX package's
+``_traverse_one`` for every ray.
 
 Node layout (f32 row of 8):
   [0:3] bbox min, [3:6] bbox max,
@@ -53,11 +53,6 @@ STACK_DEPTH = 64
 
 # launches of the CUDA kernel, per variant; the plain version never counts
 launch_counts = launch_counter(('closest_hit', 'any_hit'), __name__)
-
-
-def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
 
 
 def build_bvh(tri_p):

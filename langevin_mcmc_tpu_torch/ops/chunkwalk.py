@@ -54,11 +54,6 @@ def use_resident(pack):
         os.environ.get('LMC_CW_VMEM_BYTES', '0'))
 
 
-def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
-
-
 # ---------------------------------------------------------------------------
 # host tables
 # ---------------------------------------------------------------------------

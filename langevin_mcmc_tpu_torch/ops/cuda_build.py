@@ -109,39 +109,6 @@ def _bind(path):
     return lib
 
 
-def build_copy(out_dir, patches=(), sources=None, csrc=_CSRC):
-    """A design variant of the library: csrc (default this package's)
-    copied to out_dir/csrc, each patch (file, old, new) applied (old must
-    occur exactly once), and the named sources (default every .cu) built
-    with the library's flags into out_dir/lib.so. Returns the library,
-    its entry points bound as load_library binds them, and ptxas's report
-    of each source."""
-    src_dir = os.path.join(out_dir, 'csrc')
-    shutil.rmtree(src_dir, ignore_errors=True)
-    shutil.copytree(csrc, src_dir)
-    for name, old, new in patches:
-        path = os.path.join(src_dir, name)
-        with open(path) as f:
-            text = f.read()
-        if text.count(old) != 1:
-            raise RuntimeError(f'{out_dir}: {name} holds {text.count(old)} '
-                               f'copies of the patch target {old!r}')
-        with open(path, 'w') as f:
-            f.write(text.replace(old, new))
-    if sources is None:
-        sources = sorted(os.path.basename(p)
-                         for p in glob.glob(os.path.join(src_dir, '*.cu')))
-    nvcc = _nvcc()
-    if nvcc is None:
-        raise RuntimeError('nvcc not found: the CUDA kernels need the CUDA '
-                           'toolkit')
-    os.makedirs(_BUILD, exist_ok=True)
-    out = os.path.join(out_dir, 'lib.so')
-    reports = _compile(nvcc, [os.path.join(src_dir, s) for s in sources],
-                       out)
-    return _bind(out), reports
-
-
 def _read_json(path):
     if not os.path.exists(path):
         return {}

@@ -39,7 +39,6 @@ import torch
 
 from ..utils.tree import tree_leaves
 from . import tracing
-from .tracing import _add_launches, _since, _snapshot
 
 _capture = None   # the StepGraphs capturing in this process, else None
 
@@ -178,7 +177,7 @@ class StepGraphs:
                 if on:
                     sp = tracing.host_open('graphs.launch', item[3])
                 item[1].replay()
-                _add_launches(item[2])
+                tracing.add_launches(item[2])
                 if on:
                     tracing.host_close(sp)
             elif item[0] == 'call':
@@ -203,7 +202,7 @@ class StepGraphs:
         g = torch.cuda.CUDAGraph(keep_graph=True)
         if self.generator is not None and not self._depth:
             g.register_generator_state(self.generator)
-        self._before = _snapshot()
+        self._before = tracing.launch_snapshot()
         self._t0 = time.perf_counter()
         g.capture_begin(pool=self.pool)
         self.graphs.append(g)
@@ -216,8 +215,8 @@ class StepGraphs:
             tracing.stamp_open()
         g.capture_end()
         self.capture_s += time.perf_counter() - self._t0
-        delta = _since(self._before)
-        _add_launches(delta, -1)
+        delta = tracing.launches_since(self._before)
+        tracing.add_launches(delta, -1)
         index = len(self.graphs) - 1
         self._cur.append(('graph', g, delta, index))
         self.nodes.append(node_count(g))
@@ -227,7 +226,7 @@ class StepGraphs:
             self.instantiate_s += time.perf_counter() - t0
         with tracing.host_span('graphs.launch', index):
             g.replay()
-        _add_launches(delta)
+        tracing.add_launches(delta)
 
     def _split(self, fn, args):
         self._end()
@@ -259,7 +258,7 @@ class StepGraphs:
         self._end()
         outer, self._cur = self._cur, []
         self._depth += 1
-        before = _snapshot()
+        before = tracing.launch_snapshot()
         self._begin()
         out = fn(*args)
         self._end()
@@ -275,7 +274,7 @@ class StepGraphs:
             self.branch_runs += 1
         else:
             self.branch_skips += 1
-            _add_launches(_since(before), -1)
+            tracing.add_launches(tracing.launches_since(before), -1)
             for o in _as_tuple(out):
                 o.zero_()
         self._begin()

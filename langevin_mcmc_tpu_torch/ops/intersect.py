@@ -52,11 +52,6 @@ MATMUL_RAYS = 1 << 15
 launch_counts = launch_counter(('closest_hit', 'any_hit'), __name__)
 
 
-def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
-
-
 def tri_vertices_at_time(scene, tri_idx, time):
     """Triangle vertices [..., 3, 3] at shutter `time` [...] (keyframe 0
     on a static scene)."""

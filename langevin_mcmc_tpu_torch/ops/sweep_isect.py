@@ -30,11 +30,6 @@ TRI_CHUNK = 512
 launch_counts = launch_counter(('closest_hit', 'any_hit'), __name__)
 
 
-def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
-
-
 def prep_tables(B, C, ok, tp):
     """(pack [K, 16, 512] f32, ids [K, 512] int32, chunk_lo, chunk_hi
     [K, 3]) in the Morton order of pallas_isect._prep_tables."""

@@ -84,19 +84,29 @@ def launch_counter(keys, owner):
     return counts
 
 
-def _snapshot():
+def launch_snapshot():
+    """A copy of every launch counter, in registration order."""
     return [dict(c) for c in _counters]
 
 
-def _add_launches(delta, sign=1):
+def add_launches(delta, sign=1):
+    """Add sign * delta (a launch_snapshot's shape) to the counters."""
     for counts, d in zip(_counters, delta):
         for k, v in d.items():
             counts[k] += sign * v
 
 
-def _since(before):
+def launches_since(before):
+    """The counts launched since the launch_snapshot `before`."""
     return [{k: c[k] - b.get(k, 0) for k in c}
             for c, b in zip(_counters, before)]
+
+
+def reset_launches():
+    """Zero every launch counter, the ray counts included."""
+    for counts in _counters:
+        for k in counts:
+            counts[k] = 0
 
 
 # rays submitted to the queries while tracing (count_rays)

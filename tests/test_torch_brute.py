@@ -25,7 +25,7 @@ import pytest
 import torch
 
 from langevin_mcmc_tpu_torch import testscenes
-from langevin_mcmc_tpu_torch.ops import brute_tiles, intersect
+from langevin_mcmc_tpu_torch.ops import brute_tiles, intersect, tracing
 from langevin_mcmc_tpu_torch.parallel.mesh import ChainMesh, replicate
 from langevin_mcmc_tpu_torch.scene.parse import parse_scene
 from langevin_mcmc_tpu_torch.utils import vecmath as vm
@@ -72,7 +72,7 @@ def _plain(scene, rays):
 
 
 def test_cpu_runs_the_plain_version_without_launches(scene):
-    intersect.reset_launch_counts()
+    tracing.reset_launches()
     rays = _rays(scene, 1000, 'cpu')
     hit, tid, t, u, v = intersect.intersect_bruteforce(scene, *rays)
     occ = intersect.occluded_bruteforce(scene, *rays)
@@ -123,7 +123,7 @@ def _kernel_equals_plain(sc, rays, any_hit, splits=None):
     """The kernel (one query, one launch counted) against the plain
     version on the card, bit for bit. Returns the plain version's (t, id,
     u, v)."""
-    intersect.reset_launch_counts()
+    tracing.reset_launches()
     got = intersect.brute_force(sc, *rays, any_hit=any_hit, splits=splits)
     want = _plain(sc, rays)
     torch.cuda.synchronize()

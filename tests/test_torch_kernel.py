@@ -41,6 +41,7 @@ from langevin_mcmc_tpu_torch import testscenes
 from langevin_mcmc_tpu_torch.ops import bvh
 from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
 from langevin_mcmc_tpu_torch.ops import sweep_isect as sw
+from langevin_mcmc_tpu_torch.ops import tracing
 from langevin_mcmc_tpu_torch.parallel.mesh import ChainMesh, replicate
 from langevin_mcmc_tpu_torch.scene.parse import parse_scene
 from torch_parity import (coincident_copies, left_chain_nodes,
@@ -189,8 +190,7 @@ def _launches():
 
 
 def _reset():
-    cw.reset_launch_counts()
-    sw.reset_launch_counts()
+    tracing.reset_launches()
 
 
 def _plain(form, pack, ids, lo, hi, o, d, rng, any_hit):
@@ -401,7 +401,7 @@ def _bvh_equals_plain(sc, rays, any_hit):
     """The kernel (one launch, counted under its variant) against
     traverse_reference, bit for bit. Returns the plain version's output."""
     tabs = (sc.bvh_nodes, sc.bvh_prim_ids, sc.tri_p)
-    bvh.reset_launch_counts()
+    tracing.reset_launches()
     got = bvh.traverse(*tabs, *rays, any_hit, sc.has_motion, sc.bvh_packed)
     want = bvh.traverse_reference(*tabs, *rays, any_hit, sc.has_motion)
     torch.cuda.synchronize()
@@ -420,7 +420,7 @@ def test_bvh_wrapper_runs_the_plain_version_on_cpu(bvh_scene):
     """On CPU tensors the BVH wrapper runs traverse_reference (with or
     without the packed tables) and counts no launch; its any hit equals
     the closest hit's hit set."""
-    bvh.reset_launch_counts()
+    tracing.reset_launches()
     rays = _timed_rays(bvh_scene, 1000, 'cpu')
     tabs = (bvh_scene.bvh_nodes, bvh_scene.bvh_prim_ids, bvh_scene.tri_p)
     t, tid, _, _ = bvh.traverse(*tabs, *rays, False, bvh_scene.has_motion)
@@ -507,7 +507,7 @@ def test_bvh_kernel_needs_packed_tables_on_card(bvh_scene):
     of the tree): no fallback."""
     sc = _on_card(bvh_scene)
     rays = _timed_rays(sc, 256, 'cuda')
-    bvh.reset_launch_counts()
+    tracing.reset_launches()
     other = bvh.pack_bvh(sc.bvh_nodes.clone(), sc.bvh_prim_ids, sc.tri_p)
     for packed in (None, other):
         bare = dataclasses.replace(sc, bvh_packed=packed)

@@ -228,7 +228,7 @@ def test_launch_counter_is_registered():
     assert any(c is cache_mod.launch_counts for c in tracing._counters)
     assert tracing.snapshot()['launches']['mcmc.cache'] == \
         dict(cache_mod.launch_counts)
-    cache_mod.reset_launch_counts()
+    tracing.reset_launches()
     assert cache_mod.launch_counts == {'query': 0}
 
 
@@ -295,7 +295,7 @@ def flagship_case(device, k=5, Dm=16, lanes=16384, seed=7):
 
 
 def _kernel_equals_plain(cache, dims, q, opts):
-    cache_mod.reset_launch_counts()
+    tracing.reset_launches()
     got = cache_mod.query_knn(cache, dims, q, opts)
     assert cache_mod.launch_counts == {'query': 1}
     want = cache_mod.knn_reference(cache, dims, q, opts)
@@ -390,7 +390,7 @@ def test_captured_mala_cache_steps_equal_eager(tmp_path):
         assert int((banked0.cache.count >= banked0.cache.size).sum()) > 0
         state0 = gen.get_state()
         step = mlt.make_mlt_step(scene, opts, b, lsp, length_dist=ld)
-        cache_mod.reset_launch_counts()
+        tracing.reset_launches()
         want = banked0
         for _ in range(steps):
             want = step(gen, want, torch.zeros(shape, device=dev), init)
@@ -399,7 +399,7 @@ def test_captured_mala_cache_steps_equal_eager(tmp_path):
         gen.set_state(state0)
         multi = mlt.make_mlt_multi_step(scene, opts, b, lsp, steps,
                                         length_dist=ld)
-        cache_mod.reset_launch_counts()
+        tracing.reset_launches()
         got, _, n_done = multi(gen, banked0, torch.zeros(shape, device=dev),
                                init)
         torch.cuda.synchronize()

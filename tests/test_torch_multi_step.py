@@ -441,7 +441,7 @@ def test_kernel_launch_counters_are_registered():
     registered = [id(c) for c in tracing._counters]
     for m in (chunkwalk, sweep_isect, bvh):
         assert id(m.launch_counts) in registered
-        m.reset_launch_counts()
+        tracing.reset_launches()
         assert id(m.launch_counts) in registered
     assert sorted(chunkwalk.launch_counts) == [
         'any_hit_resident', 'closest_hit_resident', 'split_any_hit',

@@ -29,6 +29,7 @@ from langevin_mcmc_tpu_torch import testscenes
 from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
 from langevin_mcmc_tpu_torch.ops import intersect as isect
 from langevin_mcmc_tpu_torch.ops import sweep_isect as sw
+from langevin_mcmc_tpu_torch.ops import tracing
 from torch_parity import port_scene, to_np
 
 torch.set_num_threads(1)
@@ -76,7 +77,7 @@ def port_out(scenes, rays):
     _, ts = scenes
     o, d, mn, mx = _torch(rays)
     z = torch.zeros(N_RAYS)
-    sw.reset_launch_counts()
+    tracing.reset_launches()
     with torch.no_grad():
         out = ([to_np(x) for x in sw.intersect_sweep(ts, o, d, z, mn, mx)],
                to_np(sw.occluded_sweep(ts, o, d, z, mn, mx)))

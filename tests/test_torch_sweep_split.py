@@ -28,6 +28,7 @@ from langevin_mcmc_tpu.scene.parse import parse_scene as jax_parse
 from langevin_mcmc_tpu.ops import pallas_isect as jax_sweep
 from langevin_mcmc_tpu_torch import testscenes
 from langevin_mcmc_tpu_torch.ops import sweep_isect as sw
+from langevin_mcmc_tpu_torch.ops import tracing
 from langevin_mcmc_tpu_torch.ops.chunkwalk import BIG, RAY_BLOCK, _tile, \
     chunk_winner
 from torch_parity import planted_tie_case, port_scene, to_np
@@ -211,7 +212,7 @@ def test_split_sweep_matches_sweep_reference(case, which):
 
 def test_sweep_on_cpu_is_the_plain_version(case):
     _, (pack, ids, lo, hi, o, d, rng) = case
-    sw.reset_launch_counts()
+    tracing.reset_launches()
     mask = sw._chunk_mask(o, d, rng[:, 0], rng[:, 1], lo, hi)
     got = sw.walk(pack, ids, lo, hi, o, d, rng, False)
     want = sw.sweep_reference(pack, ids, mask, o, d, rng, False)

@@ -5,6 +5,7 @@ card: python -m pytest --noconftest tests/test_torch_tracing.py -q).
 * nesting: self times, inclusive times from the span tree, and their sum
   against the clock between the first and the last stamp;
 * delta of two snapshots, and a stage that charged nothing reads None;
+* reset_launches zeroes every launch counter and no other count;
 * with tracing off a render launches no stamp and records no host span,
   and make_intersect_fns returns the backends' own functions;
 * host spans share torch.profiler's clock;
@@ -107,6 +108,29 @@ def test_delta_of_two_snapshots(traced_cpu):
     assert tracing.stage_ms(d, 'second') >= 1.0
     assert d['device_ns'] == b['clock_ns'] - a['clock_ns'] > 0
     assert tracing.delta(b, b)['stages'] == {}
+
+
+def test_reset_launches_zeroes_every_owner_and_nothing_else(traced_cpu):
+    from langevin_mcmc_tpu_torch.mcmc import cache, chain
+    from langevin_mcmc_tpu_torch.ops import bvh, chunkwalk, sweep_isect
+    name = chain.LANE_COUNTERS[0]
+    for m in (intersect, chunkwalk, sweep_isect, bvh, cache):
+        for k in m.launch_counts:
+            m.launch_counts[k] += 3
+    tracing.ray_counts['closest'] += 5
+    with tracing.span('kept'):
+        tracing.count_lanes(name, 'prop', torch.ones(4, dtype=torch.bool))
+    a = tracing.snapshot()
+    assert a['launches']['rays']['closest'] >= 5
+    tracing.reset_launches()
+    b = tracing.snapshot()
+    assert set(b['launches']) == set(a['launches'])
+    for owner, counts in b['launches'].items():
+        assert set(counts) == set(a['launches'][owner])
+        assert not any(counts.values()), owner
+    assert b['lanes'] == a['lanes'] and b['lanes'][name]['prop'] >= 4
+    assert b['stages'] == a['stages'] and 'kept' in b['stages']
+    assert b['live'] == a['live']
 
 
 def _render(scene, opts, seed, n_inner=2, calls=2):

@@ -30,6 +30,7 @@ from langevin_mcmc_tpu.ops import chunkwalk as jax_cw
 from langevin_mcmc_tpu.ops import intersect as jax_isect
 from langevin_mcmc_tpu_torch import testscenes
 from langevin_mcmc_tpu_torch.ops import chunkwalk as cw
+from langevin_mcmc_tpu_torch.ops import tracing
 from torch_parity import planted_tie_case, port_scene, to_np
 
 torch.set_num_threads(1)
@@ -176,7 +177,7 @@ def test_range_lists_match_block_chunk_lists(case, which):
 def test_staged_walk_on_cpu_is_the_plain_version(case, form):
     _, (pack, ids, lo, hi, o, d, rng) = case
     walk = {'staged': cw.walk_staged, 'resident': cw.walk_resident}[form]
-    cw.reset_launch_counts()
+    tracing.reset_launches()
     chunk_idx, counts = cw._block_chunk_lists(o, d, rng[:, 0], rng[:, 1],
                                               lo, hi)
     got = walk(pack, ids, lo, hi, o, d, rng, False)
@@ -246,7 +247,7 @@ def test_resident_walk_matches_jax_resident_kernel(scenes, monkeypatch):
                            jax_cw.intersect_chunkwalk(js, *jargs))
     occ_j = np.asarray(jax_cw.occluded_chunkwalk(js, *jargs))
     targs = [torch.as_tensor(x) for x in rays]
-    cw.reset_launch_counts()
+    tracing.reset_launches()
     with torch.no_grad():
         hp, tp_, ttp, up, vp = (to_np(x) for x in cw.intersect_chunkwalk(
             ts, *targs, resident=True))
